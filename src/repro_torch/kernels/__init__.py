@@ -1,0 +1,114 @@
+"""Hand-written Hopper kernels for the shuffle engine's wide stages.
+
+Each package holds the kernel (its ``triton.jit`` bodies in ``_triton.py``,
+imported and built at the first CUDA launch), its plain torch version
+(``ref.py``) and the wrapper (``ops.py``) that pads, masks and picks between
+them by the device of the tensor it is given:
+
+  ssd_scan        — ``prefix_scan``: inclusive 1-D sum/min/max scan (the
+                    suffix-min of ``segment_totals``' last-row gather)
+  segment_reduce  — ``segment_reduce`` / ``segment_totals``: inclusive
+                    segmented scan, the reduceByKey post hook
+  moe_route       — ``bucket_route``: capacity ordinals for the hash
+                    exchange of partitionBy / join
+
+A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
+launches the kernel or raises — never the plain version. Each kernel's
+dispatching function carries two plain integer counters: ``launches`` (one
+per call that launched the kernel) and ``tune_launches`` (the same, during
+an autotune sweep, so sweeps are counted apart from the path's own runs).
+
+``registry.py`` is the capability/selection/autotune layer the shuffle
+engine (core/shuffle_plan.py) consults per wide node.
+"""
+from __future__ import annotations
+
+import contextlib
+import importlib
+import os
+import pathlib
+import threading
+
+_sweep = threading.local()
+
+#: build directory for compiled kernels (listed in .gitignore)
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+@contextlib.contextmanager
+def sweeping():
+    """Count launches inside the block as autotune launches."""
+    prev = getattr(_sweep, "on", False)
+    _sweep.on = True
+    try:
+        yield
+    finally:
+        _sweep.on = prev
+
+
+def count_launch(fn, geometry: tuple) -> None:
+    """Record one kernel launch on the dispatching function ``fn``, and
+    outside sweeps the launch's geometry (shapes and static arguments) in
+    ``fn.geometries`` so a caller can replay the shapes a path used."""
+    if getattr(_sweep, "on", False):
+        fn.tune_launches += 1
+    else:
+        fn.launches += 1
+        fn.geometries.add(geometry)
+
+
+def counted(fn):
+    """Give a dispatching function its launch counters."""
+    fn.launches = 0
+    fn.tune_launches = 0
+    fn.geometries = set()
+    return fn
+
+
+def require_cuda(*tensors) -> None:
+    """Kernel launch precondition: contiguous CUDA tensors on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"kernel operands must share one CUDA device, got "
+                             f"{[str(x.device) for x in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+
+
+def triton_kernels(module: str):
+    """Import a kernel package's ``_triton`` module (its ``triton.jit``
+    bodies) for a launch, pointing Triton's cache into ``BUILD_DIR`` unless
+    the caller chose another place. Only a CUDA launch calls this, so
+    importing the port never imports Triton."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
+    return importlib.import_module(module)
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def tile(block: int, n: int) -> int:
+    """Rows per program: ``block`` rounded up to a power of two, no larger
+    than ``n`` needs and at least 16."""
+    return max(16, next_pow2(min(max(int(block), 1), max(n, 1))))
+
+
+def launch_counters() -> dict:
+    """``{kernel name: dispatching function}`` for every kernel."""
+    from repro_torch.kernels.moe_route.route import bucket_route_fwd
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_reduce_fwd
+    from repro_torch.kernels.ssd_scan.prefix import prefix_scan_fwd
+
+    return {"segment_reduce": segment_reduce_fwd,
+            "prefix_scan": prefix_scan_fwd,
+            "bucket_route": bucket_route_fwd}
+
+
+def reset_launches() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+        fn.tune_launches = 0
+        fn.geometries = set()
+
