@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port (``src/repro_torch``) on one NVIDIA card.
 
-Drives the port's main path — the paper's hybrid wordcount on ``p = 8``
-virtual executor ranks — through the entry points a user calls, holds every
-hand-written kernel against its plain torch version at the shapes that path
-gave it, and reports. Run from the repository root:
+Drives the port's two main paths through the entry points a user calls —
+the paper's hybrid wordcount on ``p = 8`` virtual executor ranks, and
+Qwen3-14B served at full width through ``ServeFrontDoor`` — holds every
+hand-written kernel against its plain torch version at the shapes those
+paths gave it, and reports. Run from the repository root:
 
     PYTHONPATH=src python3 chip_smoke.py          # N = 2^26 words, p = 8
 
@@ -12,8 +13,13 @@ Phases (each prints its lines; any failure exits non-zero):
 
 1. build   — first launch of each Triton kernel (the kernels package
              caches builds under ``build/kernels/triton`` unless
-             TRITON_CACHE_DIR says otherwise);
-2. main    — the hybrid job, twice with ``ignis.kernels=auto`` (launch
+             TRITON_CACHE_DIR says otherwise), and the ``nvcc`` build of the
+             CUDA flash attention kernel into ``build/kernels/cuda`` with its
+             first launch (ptxas' register and spill lines are printed);
+2. edge    — every kernel against its plain version at edge shapes; the
+             flash kernel over dtypes, GQA groups, head dims, masks and
+             ragged lengths;
+3. main    — the hybrid job, twice with ``ignis.kernels=auto`` (launch
              counters reset before each run) and once with ``off``: branch A
              ``map → reduceByKey(add)`` and ``reduceByKey(max)`` (PSRS sort
              stages whose post hook runs the segment and prefix kernels; the
@@ -28,10 +34,20 @@ Phases (each prints its lines; any failure exits non-zero):
              and no new wide plan on the second run. Each run also reports
              the wall time spent in ``to_host`` (the driver-side conversion
              of collected blocks to row trees) and in autotune sweeps;
-3. kernels — each kernel against its plain version on the card at the
-             main path's largest shape and at edge cases (integers bit for
-             bit; float sums within a stated tolerance), timed with CUDA
-             events beside its bound and, where one exists, the library call.
+4. kernels — each hybrid kernel against its plain version on the card at
+             the main path's largest shape (integers bit for bit; float sums
+             within a stated tolerance), timed with CUDA events beside its
+             bound and, where one exists, the library call;
+5. serve   — after the hybrid job's memory is released: Qwen3-14B (random
+             bf16 weights from a seeded generator) serves 8 requests of
+             512–2048 prompt tokens x 32 new tokens on 4 slots of a
+             4096-position KV slab, each decode tick an IJob task of kind
+             ``serve``. Checks: every ticket resolves with 32 tokens, 40 x 8
+             flash launches, serve tasks in the job, finite logits, and flash
+             against chunked prefill logits on the same weights. Reports
+             prefill ms per request, decode ms per tick, tokens/s and peak
+             memory; then the flash kernel at the largest prefill, timed
+             beside its bound, its plain version and torch's SDPA.
 
 The last two lines are the ``kernels`` JSON object (with the card's name and
 power limit just before it) and ``{"ok": true, "device": {...}}``.
@@ -50,7 +66,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (data sheet)
+F32_FLOP_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (data sheet)
 VOCAB = 1 << 20
+#: the kernels of the hybrid path (phase 2); flash attention is the serve path's
+HYBRID_KERNELS = ("segment_reduce", "prefix_scan", "bucket_route")
 
 
 class SmokeFailure(Exception):
@@ -254,8 +274,8 @@ def main_path(args):
         K.reset_launches()
         results.append(run_job(frames, f"auto run {run}"))
         fns = K.launch_counters()
-        launches.append({k: (f.launches, f.tune_launches, sorted(f.geometries))
-                         for k, f in fns.items()})
+        launches.append({k: (fns[k].launches, fns[k].tune_launches,
+                             sorted(fns[k].geometries)) for k in HYBRID_KERNELS})
         after = w.metrics()
         log(f"main[auto run {run}]: launches "
             f"{ {k: v[0] for k, v in launches[-1].items()} } "
@@ -519,6 +539,310 @@ def kernel_checks(main_launches, reps: int):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the serve path: Qwen3-14B through ServeFrontDoor, flash attention in prefill
+# ---------------------------------------------------------------------------
+
+#: flash kernel against its plain version: bf16 keeps P in f32 in the kernel
+#: but rounds it to bf16 in the plain version before P·V (and both round the
+#: output to bf16, 2^-8 relative), so bf16 is held to 2e-2; f32 differs only
+#: in summation order (FMA loop against cuBLAS in full f32)
+FLASH_TOL = {"torch.bfloat16": (2e-2, 2e-2), "torch.float32": (2e-5, 1e-4)}
+#: relative L2 between flash and chunked prefill logits through 40 bf16
+#: layers: the paths differ in where P is rounded (above) and in summation
+#: order, about one bf16 rounding (2^-9 relative) of each layer's attention
+#: output, which the 40 random-weight layers carry and compound
+SERVE_REL_L2 = 5e-2
+SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_NEW = 4, 4096, 8, 32
+
+
+def flash_flop(q_shape, k_shape, causal, q_offset):
+    """FLOP of the two products over the live (row, column) pairs."""
+    B, H, Sq, hd = q_shape
+    Skv = k_shape[2]
+    if causal:  # row i sees columns 0 .. i + q_offset (capped at Skv)
+        rows = sum(min(i + q_offset + 1, Skv) for i in range(Sq))
+    else:
+        rows = Sq * Skv
+    return 4 * hd * B * H * rows
+
+
+def flash_edge_checks():
+    """The flash kernel against its plain version on the card: bf16 and
+    f32, G in {1, 5}, hd in {64, 128, 256}, causal on and off, window in
+    {None, 16}, softcap in {0, 50}, ragged Sq, Skv in {1, 127, 129, 1000}
+    with q_offset = Skv - Sq where Sq <= Skv (0 otherwise; a window then
+    leaves rows with no live column, which the plain version and the kernel
+    define differently, so that pair is not run). No output may be NaN."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    lens = (1, 127, 129, 1000)
+    n, worst = 0, {}
+    for dt, G, hd in itertools.product((torch.bfloat16, torch.float32), (1, 5),
+                                       (64, 128, 256)):
+        K, B = 2, 2
+        atol, rtol = FLASH_TOL[str(dt)]
+        for Sq, Skv in itertools.product(lens, lens):
+            def rnd(*shape):
+                return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+            q = rnd(B, K * G, Sq, hd) * 4
+            k, v = rnd(B, K, Skv, hd), rnd(B, K, Skv, hd)
+            off = Skv - Sq if Sq <= Skv else 0
+            for causal, window, cap in itertools.product((True, False), (None, 16),
+                                                         (0.0, 50.0)):
+                if window is not None and Sq > Skv:
+                    continue
+                kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+                got = flash_attention_fwd(q, k, v, **kw)
+                ref = attention_ref(q, k, v, **kw)
+                what = (f"flash {dt} G={G} hd={hd} Sq={Sq} Skv={Skv} causal={causal} "
+                        f"window={window} softcap={cap}")
+                check(not torch.isnan(got).any(), f"{what}: NaN in the output")
+                check(got.dtype == ref.dtype and got.shape == ref.shape, f"{what}: shape")
+                check(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol),
+                      f"{what}: max abs err {max_err(got, ref)} beyond atol {atol}, "
+                      f"rtol {rtol}")
+                worst[str(dt)] = max(worst.get(str(dt), 0.0), max_err(got, ref))
+                n += 1
+    torch.cuda.synchronize()
+    log(f"edge: flash_attention — {n} cases (bf16/f32 x G {{1, 5}} x hd {{64, 128, "
+        f"256}} x causal x window {{None, 16}} x softcap {{0, 50}} x Sq, Skv in "
+        f"{lens}): OK; max abs err {worst}")
+
+
+class _Timed:
+    """Host wall (ms, after a device synchronize) of each call of ``fn``,
+    with a check that every logit it returns is finite."""
+
+    def __init__(self, fn, what):
+        self.fn, self.what, self.ms = fn, what, []
+
+    def __call__(self, *a, **kw):
+        import torch
+
+        t0 = time.perf_counter()
+        logits, cache = self.fn(*a, **kw)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(logits).all()), f"{self.what}: a logit is not finite")
+        return logits, cache
+
+
+def where_time(what, fn, reps=4):
+    """Per call: host wall to enqueue the call (it returns before the
+    device finishes), wall to the device's end, and — from
+    ``torch.profiler`` over as many calls again — the device's busy time
+    (the sum of its kernels' and copies' times; one stream, so they do not
+    overlap) and the heaviest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    enq, tot = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enq.append((t1 - t0) * 1e3)
+        tot.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    # the device's own events (kernels, copies); an aten op's row repeats
+    # the device time of the kernels it launched
+    evs = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in evs) / 1e3 / reps
+    wall = sorted(tot)[len(tot) // 2]
+    top = sorted(evs, key=dev_us, reverse=True)[:6]
+    log(f"where: {what}: enqueue {sorted(enq)[len(enq) // 2]:.3f} ms, to the device's "
+        f"end {wall:.3f} ms (median of {reps}); device busy "
+        + (f"{busy:.3f} ms per call, idle share {max(0.0, 1 - busy / wall):.3f}"
+           if evs else "not measured (the profiler saw no device time)"))
+    for e in top:
+        log(f"where: {what}:   {dev_us(e) / 1e3 / reps:9.3f} ms/call in {e.count // reps:5d} "
+            f"launches of {e.key[:90]}")
+
+
+def serve_path(args):
+    """Qwen3-14B at full width (random weights from a seeded generator) serves
+    8 requests of 512–2048 prompt tokens x 32 new tokens through
+    ``ServeFrontDoor`` on a cuda worker: continuous batching on 4 slots of a
+    4096-position bf16 KV slab, one IJob task of kind ``serve`` per tick,
+    every prefill through the flash kernel."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import ICluster, IJob, IProperties, IWorker
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    from repro_torch.streaming import ServeFrontDoor
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"serve: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+        f"before the model")
+    cfg = get_config("qwen3-14b").with_overrides(attn_impl="flash")
+    bundle = build_model(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(args.seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"serve: {cfg.name} ({cfg.source}) at full width, {n_params} parameters in "
+        f"{cfg.param_dtype}, initialised on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+    w = IWorker(ICluster(IProperties({"ignis.device": "cuda"})), "python")
+    check(params.device == w.device, f"model on {params.device}, worker on {w.device}")
+    engine = ServeEngine(bundle, params, slots=SERVE_SLOTS, cache_len=SERVE_CACHE_LEN)
+    prefill = _Timed(bundle.prefill, "prefill")
+    decode = _Timed(bundle.decode_step, "decode")
+    engine.bundle = dataclasses.replace(bundle, prefill=prefill, decode_step=decode)
+    job = IJob("serve")
+    fd = ServeFrontDoor(engine, w, job=job)
+    rng = np.random.default_rng(args.seed)
+    lens = rng.integers(512, 2049, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lens]
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    tickets = [fd.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+    fd.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flash = K.launch_counters()["flash_attention"]
+    launches = {"flash_attention": (flash.launches, flash.tune_launches,
+                                    sorted(flash.geometries))}
+    peak = torch.cuda.max_memory_allocated()
+
+    done = [t.result(60.0) for t in tickets]
+    check(all(r is not None and len(r.tokens) == SERVE_NEW for r in done),
+          f"not every request resolved with {SERVE_NEW} tokens")
+    want = cfg.num_layers * SERVE_REQUESTS
+    check(flash.launches == want, f"flash launches {flash.launches}, expected {want} "
+          f"({cfg.num_layers} layers x {SERVE_REQUESTS} prefills)")
+    tasks = job.metrics("tasks")
+    check(tasks["serve"] > 0 and tasks["failed"] == 0, f"job tasks {tasks}")
+    st = fd.stats()
+    gen = sum(len(r.tokens) for r in done)
+    log(f"serve: {len(done)} requests (prompt lengths {lens.tolist()}) x {SERVE_NEW} "
+        f"tokens in {wall * 1e3:.1f} ms: {gen / wall:.1f} generated tokens/s; "
+        f"{tasks['serve']} serve ticks in the IJob; flash launches {flash.launches}")
+    log(f"serve: prefill (time to first token) ms per request "
+        f"{[round(x, 3) for x in prefill.ms]}; mean {np.mean(prefill.ms):.3f}")
+    log(f"serve: decode ms per tick over {len(decode.ms)} ticks: median "
+        f"{np.median(decode.ms):.3f}, mean {np.mean(decode.ms):.3f}, min "
+        f"{min(decode.ms):.3f}, max {max(decode.ms):.3f}")
+    lat = [t.latency_ms for t in tickets]
+    log(f"serve: request latency p50 {np.percentile(lat, 50):.1f} ms, max "
+        f"{max(lat):.1f} ms (from submission; all {SERVE_REQUESTS} queued at once); "
+        f"front door {st['ticks']} ticks, {st['telemetry']['completed']} completed; "
+        f"peak max_memory_allocated {peak / 2**30:.2f} GiB")
+
+    # where a tick's and a prefill's time goes: host enqueue against device
+    longest = torch.as_tensor(prompts[int(np.argmax(lens))], device="cuda")[None]
+    toks = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device="cuda")
+    where_time("decode tick", lambda: bundle.decode_step(params, engine.cache, toks))
+    where_time(f"prefill of {longest.shape[1]} tokens",
+               lambda: bundle.prefill(params, tokens=longest))
+
+    # flash against chunked prefill on the same weights (two of the prompts)
+    chunked = build_model(cfg.with_overrides(attn_impl="chunked"))
+    for i in (int(np.argmin(lens)), int(np.argmax(lens))):
+        tok = torch.as_tensor(prompts[i], device="cuda")[None]
+        lf, _ = bundle.prefill(params, tokens=tok)
+        lc, _ = chunked.prefill(params, tokens=tok)
+        rel = float((lf.float() - lc.float()).norm() / lc.float().norm())
+        log(f"serve: prompt {i} ({len(prompts[i])} tokens): flash vs chunked prefill "
+            f"logits relative L2 {rel:.3e} (tolerance {SERVE_REL_L2}); argmax "
+            f"{int(lf.argmax())} vs {int(lc.argmax())}")
+        check(rel <= SERVE_REL_L2, f"flash and chunked prefill logits differ: rel L2 {rel}")
+    report = dict(prefill_ms=prefill.ms, decode_ms=decode.ms, wall_ms=wall * 1e3,
+                  tokens_per_s=gen / wall, peak_gib=peak / 2**30)
+    del params, engine, fd, chunked
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def flash_row(launches, reps: int):
+    """The flash kernel at the serve path's largest prefill shape, timed
+    beside its bound, its plain version and torch's fused SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    cnt, _t, geoms = launches["flash_attention"]
+    qs, ks, dts, causal, window, cap, off = max(geoms, key=lambda gm: gm[0][2])
+    dt = getattr(torch, dts.split(".")[1])
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(qs, generator=g, device="cuda").to(dt)
+    k = torch.randn(ks, generator=g, device="cuda").to(dt)
+    v = torch.randn(ks, generator=g, device="cuda").to(dt)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+    got, ref = flash_attention_fwd(q, k, v, **kw), attention_ref(q, k, v, **kw)
+    atol, rtol = FLASH_TOL[dts]
+    check(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol),
+          f"flash at {qs}: max abs err {max_err(got, ref)}")
+    check(window is None and cap == 0.0 and off == 0 and causal,
+          "the serve path's flash call is plain causal: the library call below "
+          "computes the same function only then")
+    flop = flash_flop(qs, ks, causal, off)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_ops = flop / (BF16_FLOP_PER_S if dt == torch.bfloat16 else F32_FLOP_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    row = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:76",
+        launches=cnt, max_abs_err=max_err(got, ref),
+        ms=time_ms(lambda: flash_attention_fwd(q, k, v, **kw), reps),
+        plain_ms=time_ms(lambda: attention_ref(q, k, v, **kw), max(reps // 4, 2)),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps),
+        shape=[list(qs), list(ks)], dtype=dts, flop=flop)
+    log(f"kernel flash_attention: q {qs} k/v {ks} {dts} causal launches {cnt} max_abs_err "
+        f"{row['max_abs_err']} | {row['ms']:.4f} ms vs bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}: {flop:.3e} FLOP / 989 TFLOP/s, {nbytes} B / 3.35 TB/s) | "
+        f"plain {row['plain_ms']:.4f} ms | library (SDPA) {row['library_ms']:.4f} ms")
+    # the longest prompt the serve path admits (2048 tokens), whatever the seed drew
+    q2 = torch.randn((1, qs[1], 2048, qs[3]), generator=g, device="cuda").to(dt)
+    k2 = torch.randn((1, ks[1], 2048, ks[3]), generator=g, device="cuda").to(dt)
+    ms2 = time_ms(lambda: flash_attention_fwd(q2, k2, k2, causal=True), reps)
+    bound2 = flash_flop(q2.shape, k2.shape, True, 0) / BF16_FLOP_PER_S * 1e3
+    log(f"kernel flash_attention: at q {tuple(q2.shape)} (the longest admitted prompt) "
+        f"{ms2:.4f} ms vs bound {bound2:.4f} ms (operations) | plain "
+        f"{time_ms(lambda: attention_ref(q2, k2, k2), max(reps // 4, 2)):.4f} ms | SDPA "
+        f"{time_ms(lambda: F.scaled_dot_product_attention(q2, k2, k2, is_causal=True, enable_gqa=True), reps):.4f} ms")
+    return row
+
+
 def build():
     import torch
 
@@ -530,6 +854,19 @@ def build():
         torch.cuda.synchronize()
         log(f"build: {name} first launch (Triton compile) "
             f"{time.perf_counter() - t0:.2f} s")
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
+
+    t0 = time.perf_counter()
+    x = torch.zeros((1, 1, 1, 64), device="cuda")
+    flash_attention_fwd(x, x, x)
+    torch.cuda.synchronize()
+    log(f"build: flash_attention nvcc build ({_cuda.library_path('flash_attention').name}) "
+        f"and first launch {time.perf_counter() - t0:.2f} s")
+    for line in _cuda.build_logs.get("flash_attention", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"build: ptxas: {line.strip()}")
 
 
 def main() -> int:
@@ -553,11 +890,17 @@ def main() -> int:
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
+    # the plain versions' f32 products in full f32, as the kernels compute
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         build()
         edge_checks()
+        flash_edge_checks()
         launches = main_path(args)
         rows = kernel_checks(launches, args.reps)
+        serve_launches, _ = serve_path(args)
+        rows.append(flash_row(serve_launches, args.reps))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

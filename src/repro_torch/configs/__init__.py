@@ -1,0 +1,8 @@
+"""Architecture configs the port runs (a copy of part of the JAX package's
+``repro.configs``). Importing this package registers them;
+``get_config(name)`` fetches, and names an architecture that is not ported
+yet (ROADMAP A.8)."""
+from repro_torch.configs.base import (ArchConfig, SHAPES, ShapeCell,  # noqa: F401
+                                      get_config, list_configs)
+
+from repro_torch.configs import paper_app, qwen3_14b  # noqa: F401  (registration)

@@ -172,6 +172,10 @@ register("ignis.kernels.blocks", "str", "128,256,512",
 register("ignis.kernels.tune.cache.size", "int", "512",
          "Autotune memo LRU entries.")
 
+# -- serving (docs/streaming.md) ----------------------------------------------
+register("ignis.serve.queue.depth", "int", "64",
+         "Serve front-door request queue bound.")
+
 #: canonical {name: default} view of the registry — properties files and
 #: tests seed from it
 DEFAULTS = {name: spec.default for name, spec in REGISTRY.items()}

@@ -1,4 +1,4 @@
-"""Carrying blocks across from the JAX package and back.
+"""Carrying blocks and model weights across from the JAX package and back.
 
 For a dataflow system the blocks are the state. A JAX block row-sharded
 over ``p`` devices holds rows ``[r·N/p, (r+1)·N/p)`` on device ``r``; taken
@@ -29,3 +29,54 @@ def block_to_numpy(block: Block):
     """``(data tree of numpy arrays, valid numpy bool array)`` in row order."""
     data = tree.map(lambda x: x.detach().cpu().numpy(), block.data)
     return data, block.valid.detach().cpu().numpy()
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy leaf as a tensor, bit for bit. A JAX bf16 array taken to
+    numpy has ``ml_dtypes``' bfloat16 type, which ``torch.from_numpy``
+    refuses: it crosses as uint16 and is viewed back as bfloat16."""
+    a = np.array(a)  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_reference(params_np, cfg, device="cpu"):
+    """The port's ``TransformerLM`` holding the JAX package's weights.
+
+    ``params_np`` is the JAX parameter tree of ``cfg`` with its leaves taken
+    to numpy (layers stacked on axis 0). Every leaf lands in the parameter
+    of the same path (``layers.<i>.attn.wq`` ← ``layers/attn/wq[i]``), with
+    its shape and dtype checked; every leaf must be used."""
+    from repro_torch.models.transformer import TransformerLM
+
+    lm = TransformerLM(cfg, device=device)
+    used = set()
+    with torch.no_grad():
+        for name, p in lm.named_parameters():
+            path = name.split(".")
+            index = None
+            if path[0] == "layers":
+                index, path = int(path[1]), ["layers", *path[2:]]
+            leaf = params_np
+            for part in path:
+                leaf = leaf[part]
+            used.add(tuple(path))
+            t = _tensor(leaf if index is None else np.asarray(leaf)[index])
+            if t.shape != p.shape or t.dtype != p.dtype:
+                raise ValueError(f"{name}: reference leaf {tuple(t.shape)} {t.dtype} "
+                                 f"does not fit {tuple(p.shape)} {p.dtype}")
+            p.copy_(t)
+    leaves = set()
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, (*path, k))
+        else:
+            leaves.add(path)
+
+    walk(params_np, ())
+    if leaves != used:
+        raise ValueError(f"reference leaves without a parameter: {sorted(leaves - used)}")
+    return lm

@@ -1,9 +1,11 @@
-"""Hand-written Hopper kernels for the shuffle engine's wide stages.
+"""Hand-written Hopper kernels: the shuffle engine's wide stages and the
+model zoo's attention.
 
-Each package holds the kernel (its ``triton.jit`` bodies in ``_triton.py``,
-imported and built at the first CUDA launch), its plain torch version
-(``ref.py``) and the wrapper (``ops.py``) that pads, masks and picks between
-them by the device of the tensor it is given:
+Each package holds the kernel (Triton ``triton.jit`` bodies in
+``_triton.py``, or CUDA C++ under ``src/repro_torch/csrc`` built by
+``_cuda.py``; either is built at the first CUDA launch), its plain torch
+version (``ref.py``) and the wrapper (``ops.py``) that pads, masks and picks
+between them by the device of the tensor it is given:
 
   ssd_scan        — ``prefix_scan``: inclusive 1-D sum/min/max scan (the
                     suffix-min of ``segment_totals``' last-row gather)
@@ -11,6 +13,8 @@ them by the device of the tensor it is given:
                     segmented scan, the reduceByKey post hook
   moe_route       — ``bucket_route``: capacity ordinals for the hash
                     exchange of partitionBy / join
+  flash_attention — ``flash_attention``: online-softmax attention forward
+                    (CUDA C++), the dense models' prefill attention
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises — never the plain version. Each kernel's
@@ -97,13 +101,15 @@ def tile(block: int, n: int) -> int:
 
 def launch_counters() -> dict:
     """``{kernel name: dispatching function}`` for every kernel."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
     from repro_torch.kernels.moe_route.route import bucket_route_fwd
     from repro_torch.kernels.segment_reduce.segment_reduce import segment_reduce_fwd
     from repro_torch.kernels.ssd_scan.prefix import prefix_scan_fwd
 
     return {"segment_reduce": segment_reduce_fwd,
             "prefix_scan": prefix_scan_fwd,
-            "bucket_route": bucket_route_fwd}
+            "bucket_route": bucket_route_fwd,
+            "flash_attention": flash_attention_fwd}
 
 
 def reset_launches() -> None:

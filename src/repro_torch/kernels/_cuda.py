@@ -1,0 +1,68 @@
+"""Build and load the port's CUDA C++ kernels (``src/repro_torch/csrc``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, under ``build/kernels/cuda/`` (listed in
+.gitignore), and loaded with ``ctypes``. The build happens at the first
+launch, once per process under a lock; the library's file name carries a
+hash of the sources and flags, so an edited kernel is rebuilt. A failed
+build raises: nothing falls back. Only a CUDA launch calls ``load``, so
+importing the port needs no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+from repro_torch.kernels import BUILD_DIR
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+#: ``{source name: nvcc's output}`` of the builds this process made
+#: (``-Xptxas=-v``: registers, shared memory and spills of each kernel)
+build_logs: dict[str, str] = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return str(pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where ``csrc/<name>.cu`` builds to, keyed by its sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):  # the kernel and any shared header
+        if src.suffix == ".cuh" or src.stem == name:
+            h.update(src.read_bytes())
+    return BUILD_DIR / "cuda" / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        out = library_path(name)
+        if not out.exists():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {name}.cu "
+                                   f"(exit {r.returncode}):\n{r.stderr[-8000:]}")
+            build_logs[name] = r.stderr
+            os.replace(tmp, out)
+        lib = _libs[name] = ctypes.CDLL(str(out))
+        return lib

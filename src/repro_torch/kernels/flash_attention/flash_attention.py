@@ -1,0 +1,95 @@
+"""Blockwise fused attention forward (flash) — CUDA C++ kernel for Hopper.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention/
+flash_attention.py::flash_attention_fwd``. The kernel's source,
+``src/repro_torch/csrc/flash_attention.cu``, says what bounds it and how it
+is laid out; it is built with ``nvcc`` at the first launch
+(``kernels/_cuda.py``) and called through ``ctypes`` on the tensors'
+current stream.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _cuda, count_launch, counted, require_cuda
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+HEAD_DIMS = (64, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+
+
+def _entry():
+    """The C entry point, with its argument types declared (a pointer
+    passed without ``c_void_p`` would be cut to 32 bits)."""
+    global _fn
+    if _fn is None:
+        lib = _cuda.load("flash_attention")
+        fn = lib.flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _fn = fn
+    return _fn
+
+
+def _check(q, k, v, q_offset, kv_len, window, softcap):
+    require_cuda(q, k, v)
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash kernel takes float32 or bfloat16 q, k, v of one "
+                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash kernel takes q (B, H, Sq, hd), k = v (B, K, Skv, "
+                         f"hd), got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, _, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or H % k.shape[1]:
+        raise ValueError(f"flash kernel: k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} (H must be a multiple of K)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, got {hd}")
+    if q_offset < 0 or not 0 <= kv_len <= k.shape[2]:
+        raise ValueError(f"flash kernel: q_offset {q_offset} must be >= 0 and kv_len "
+                         f"{kv_len} within [0, {k.shape[2]}]")
+    if window is not None and window <= 0 or softcap < 0:
+        raise ValueError(f"flash kernel: window {window} must be positive, softcap "
+                         f"{softcap} non-negative")
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise NotImplementedError(
+            "the flash kernel has no backward yet: run it under torch.no_grad(); "
+            "its autograd.Function comes with the training slice (ROADMAP A.8)")
+
+
+@counted
+def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=0.0,
+                        q_offset=0, kv_len=None):
+    """q: (B, H, Sq, hd); k, v: (B, K, Skv, hd), H = K·G. ``kv_len`` masks
+    key columns at and beyond it (default Skv). Returns (B, H, Sq, hd) in
+    q's dtype. A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel or raises."""
+    Skv = k.shape[2]
+    kv_len = Skv if kv_len is None else int(kv_len)
+    if not q.is_cuda:
+        return attention_ref(q, k[:, :, :kv_len], v[:, :, :kv_len], causal=causal,
+                             window=window, softcap=softcap, q_offset=q_offset)
+    _check(q, k, v, q_offset, kv_len, window, softcap)
+    B, H, Sq, hd = q.shape
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    fn = _entry()
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
+                 B, H, H // k.shape[1], Sq, Skv, hd, int(q_offset), kv_len, int(bool(causal)),
+                 -1 if window is None else int(window), float(softcap or 0.0), hd**-0.5,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        msg = _cuda.load("flash_attention").flash_attention_error_string(err)
+        raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err} "
+                           f"({msg.decode() if msg else '?'})")
+    count_launch(flash_attention_fwd, (tuple(q.shape), tuple(k.shape), str(q.dtype),
+                                       bool(causal), window, float(softcap), int(q_offset)))
+    return o

@@ -1,0 +1,151 @@
+"""Decoder-only transformer LM, dense family (the port of the dense part of
+``repro.models.transformer``): GQA (+qk-norm), RoPE, sliding-window and
+local:global window patterns, logit soft-caps.
+
+The JAX package stacks layers on a leading axis and runs them with
+``lax.scan``; here the layers are an ``nn.ModuleList`` and the scan is a
+loop over it. The MoE FFN and the VLM patch prefix come with their families
+(ROADMAP A.8). Prefill and decode run under ``torch.no_grad()``: this is
+the serving path.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import MLP, Norm, apply_norm, embed_init, mlp, weight
+
+_TODO = "is not ported yet (ROADMAP A.8: the other families of the model zoo)"
+
+
+def _dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+class Layer(nn.Module):
+    def __init__(self, cfg, device, generator=None):
+        super().__init__()
+        if cfg.is_moe:
+            raise NotImplementedError(f"the MoE FFN {_TODO}")
+        self.ln1 = Norm(cfg.d_model, cfg.norm_type, device)
+        self.attn = attn.Attention(cfg, _dtype(cfg), device, generator)
+        self.ln2 = Norm(cfg.d_model, cfg.norm_type, device)
+        self.ffn = MLP(cfg.d_model, cfg.d_ff, _dtype(cfg), device, generator)
+
+
+class TransformerLM(nn.Module):
+    """``embed`` (V, D), ``layers``, ``final_norm`` and, unless tied,
+    ``lm_head`` (D, V) — the JAX parameter tree with its layer axis turned
+    into a list. With a ``generator`` every weight is drawn on its device,
+    tensor by tensor in ``param_dtype`` (a full-width model is never held
+    in f32); without one the weights are left uninitialised on ``device``."""
+
+    def __init__(self, cfg, device=None, generator=None):
+        super().__init__()
+        if cfg.frontend == "vit_patch":
+            raise NotImplementedError(f"the VLM patch frontend {_TODO}")
+        dt = _dtype(cfg)
+        if generator is not None:
+            device = generator.device
+        self.embed = weight((cfg.vocab_size, cfg.d_model), dt, device, generator, embed_init)
+        self.layers = nn.ModuleList(Layer(cfg, device, generator)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = Norm(cfg.d_model, cfg.norm_type, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = weight((cfg.d_model, cfg.vocab_size), dt, device, generator,
+                                  embed_init)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def make_lm_params(generator: torch.Generator, cfg) -> TransformerLM:
+    """Random weights drawn from ``generator``, on its device."""
+    return TransformerLM(cfg, generator=generator)
+
+
+def head_matrix(params, cfg):
+    return params.embed.T if cfg.tie_embeddings else params.lm_head
+
+
+def layer_windows(cfg) -> np.ndarray:
+    """Static per-layer attention window (GLOBAL_WINDOW = unbounded)."""
+    n = cfg.num_layers
+    if cfg.local_global_period:
+        per = cfg.local_global_period
+        w = [cfg.local_window if (i + 1) % (per + 1) else attn.GLOBAL_WINDOW for i in range(n)]
+    elif cfg.sliding_window:
+        w = [cfg.sliding_window] * n
+    else:
+        w = [attn.GLOBAL_WINDOW] * n
+    return np.asarray(w, np.int32)
+
+
+def embed_tokens(params, tokens, cfg, patches=None):
+    if patches is not None:
+        raise NotImplementedError(f"the VLM patch prefix {_TODO}")
+    return params.embed[tokens.long()]
+
+
+@torch.no_grad()
+def lm_prefill(params, tokens, cfg, cache_len=None, patches=None):
+    """Run the prompt, build KV caches sized ``cache_len`` (≥ S).
+
+    Returns (last-position logits (B, V), cache dict): ``k``/``v``
+    (L, B, Smax, K, hd) in the activations' dtype, zero beyond S, and
+    ``pos`` (B,) int32.
+    """
+    x = embed_tokens(params, tokens, cfg, patches)
+    B, S, _ = x.shape
+    Smax = cache_len or S
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    warr = layer_windows(cfg)
+    # the flash kernel stays eligible only when every layer has one window
+    static = bool((warr == warr[0]).all())
+    shape = (cfg.num_layers, B, Smax, cfg.num_kv_heads, cfg.head_dim)
+    ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    for i, (lp, window) in enumerate(zip(params.layers, warr.tolist())):
+        a, (k, v) = attn.attention(apply_norm(x, lp.ln1, cfg.norm_type), lp.attn, cfg,
+                                   pos, window=window, static_window=static)
+        x = x + a
+        h = apply_norm(x, lp.ln2, cfg.norm_type)
+        x = x + mlp(h, lp.ffn)
+        ks[i, :, :S] = k
+        vs[i, :, :S] = v
+    h = apply_norm(x, params.final_norm, cfg.norm_type)
+    logits = h[:, -1] @ head_matrix(params, cfg)
+    cache = {"k": ks, "v": vs, "pos": torch.full((B,), S, dtype=torch.int32, device=x.device)}
+    return logits, cache
+
+
+def make_cache(cfg, batch, max_len, dtype=torch.bfloat16, device="cuda"):
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+@torch.no_grad()
+def lm_decode_step(params, cache, tokens, cfg):
+    """One decode step. tokens: (B, 1); cache['pos']: (B,) write positions.
+
+    Returns (logits (B, V), cache). The caches' ``k``/``v`` are written in
+    place (one row per slot per layer); ``pos`` is a new tensor.
+    """
+    x = embed_tokens(params, tokens, cfg)
+    pos = cache["pos"]
+    for i, (lp, window) in enumerate(zip(params.layers, layer_windows(cfg).tolist())):
+        a, _, _ = attn.decode_attention(apply_norm(x, lp.ln1, cfg.norm_type), lp.attn, cfg,
+                                        pos, cache["k"][i], cache["v"][i], window=window)
+        x = x + a
+        h = apply_norm(x, lp.ln2, cfg.norm_type)
+        x = x + mlp(h, lp.ffn)
+    h = apply_norm(x, params.final_norm, cfg.norm_type)
+    logits = h[:, -1] @ head_matrix(params, cfg)
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

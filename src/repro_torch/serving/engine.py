@@ -1,0 +1,139 @@
+"""Continuous-batching serve engine (the port of ``repro.serving.engine``).
+
+Fixed-slot design: the KV cache is a (slots, …) slab; new requests are
+admitted into free slots via single-row prefill, every engine step runs ONE
+batched decode over all live slots, finished requests retire and free their
+slot. A request reaching its token budget retires (with a truncation flag
+when it has an ``eos_id`` it did not meet).
+
+The slab lives on the model's device and is updated in place: prefill rows
+are spliced into their slot, and each decode writes one row per slot.
+"""
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # (Lp,) int32
+    max_new_tokens: int = 32
+    eos_id: Optional[int] = None
+    # runtime
+    tokens: list = field(default_factory=list)
+    done: bool = False
+    truncated: bool = False
+
+
+class ServeEngine:
+    def __init__(self, bundle, params, *, slots: int = 4, cache_len: int = 256):
+        self.bundle = bundle
+        self.cfg = bundle.cfg
+        self.params = params
+        self.device = params.device
+        self.slots = slots
+        self.cache_len = cache_len
+        self.cache = bundle.make_cache(slots, cache_len, device=self.device)
+        self.live: list[Optional[Request]] = [None] * slots
+        # deque: admission pops from the head every tick
+        self.queue: deque[Request] = deque()
+        # requests finished but not yet reported: the engine appends here the
+        # moment a request retires (whether at prefill or mid-decode) and
+        # run_to_completion() drains it — callers polling step() directly can
+        # drain it themselves
+        self.retired: list[Request] = []
+        self._last = np.zeros((slots,), np.int32)
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def _finish_check(self, req: Request, tok: int) -> bool:
+        """Apply the retirement rules to the just-appended token."""
+        if req.eos_id is not None and tok == req.eos_id:
+            req.done = True
+        if len(req.tokens) >= req.max_new_tokens:
+            req.done = True
+            req.truncated = req.eos_id is not None and tok != req.eos_id
+        return req.done
+
+    def _admit(self):
+        for s in range(self.slots):
+            if self.live[s] is not None:
+                continue
+            while self.queue:
+                req = self.queue.popleft()
+                self._prefill_into_slot(s, req)
+                # the prefill already produced a token: a request done at its
+                # first token retires without ever occupying the slot
+                if self._finish_check(req, req.tokens[-1]):
+                    self.retired.append(req)
+                    continue  # slot still free: admit the next waiter
+                self.live[s] = req
+                break
+
+    def _prefill_into_slot(self, s: int, req: Request):
+        """Single-request prefill, then splice its cache rows into slot s."""
+        tokens = torch.as_tensor(np.asarray(req.prompt, np.int32), device=self.device)[None]
+        logits, cache1 = self.bundle.prefill(self.params, tokens=tokens)
+        first = int(torch.argmax(logits[0]))
+        req.tokens.append(first)
+        self._last[s] = first
+        _splice(self.cache, cache1, s, self.cache_len)
+
+    # ------------------------------------------------------------------
+    def step(self) -> int:
+        """Admit + one batched decode tick. Returns #live requests."""
+        self._admit()
+        if not any(r is not None for r in self.live):
+            return 0
+        toks = torch.as_tensor(self._last, device=self.device)[:, None]
+        logits, self.cache = self.bundle.decode_step(self.params, self.cache, toks)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        for s, req in enumerate(self.live):
+            if req is None:
+                continue
+            tok = int(nxt[s])
+            req.tokens.append(tok)
+            self._last[s] = tok
+            if self._finish_check(req, tok):
+                self.retired.append(req)
+                self.live[s] = None  # slot freed; stale cache rows are
+                # harmless: admission overwrites them via _splice
+        return sum(r is not None for r in self.live)
+
+    def run_to_completion(self, max_ticks: int = 10_000) -> list[Request]:
+        """Tick until queue and slots drain; returns (and clears) the
+        retired list, which ``step()`` itself records."""
+        ticks = 0
+        while (self.queue or any(r is not None for r in self.live)) \
+                and ticks < max_ticks:
+            self.step()
+            ticks += 1
+        out, self.retired = self.retired, []
+        return out
+
+
+def _splice(cache, cache1, slot: int, cache_len: int):
+    """Write a request cache (batch 1, length Lp) into slot ``slot`` of the
+    slab (batch S, length cache_len), in place: rows beyond Lp are zeroed
+    (the JAX package pads with zeros) and values are cast to the slab's
+    dtype (bf16 even for an f32 model). Returns the slab."""
+    for name, slab in cache.items():
+        single = cache1[name]
+        if slab.ndim == 1:  # pos (B,)
+            slab[slot] = single[0].to(slab.dtype)
+            continue
+        # per-layer stacked leaves: (L, B, cache_len, ...) vs (L, 1, Lp, ...)
+        Lp = single.shape[2]
+        if Lp > cache_len:
+            raise ValueError(f"prompt cache of {Lp} positions exceeds cache_len {cache_len}")
+        slab[:, slot, :Lp] = single[:, 0].to(slab.dtype)
+        slab[:, slot, Lp:] = 0
+    return cache
