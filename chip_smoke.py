@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port (``src/repro_torch``) on one NVIDIA card.
 
-Drives the port's two main paths through the entry points a user calls —
-the paper's hybrid wordcount on ``p = 8`` virtual executor ranks, and
-Qwen3-14B served at full width through ``ServeFrontDoor`` — holds every
-hand-written kernel against its plain torch version at the shapes those
-paths gave it, and reports. Run from the repository root:
+Drives the port's main paths through the entry points a user calls — the
+paper's hybrid wordcount on ``p = 8`` virtual executor ranks, then three
+model families served through ``ServeFrontDoor`` (Qwen3-14B, Mamba2-780M,
+Mixtral-8x7B) — holds every hand-written kernel against its plain torch
+version at the shapes those paths gave it, and reports. Run from the
+repository root:
 
     PYTHONPATH=src python3 chip_smoke.py          # N = 2^26 words, p = 8
 
-Phases (each prints its lines; any failure exits non-zero):
+Phases (each prints its lines; any failure exits non-zero; ``--phases``
+picks a subset, all by default):
 
-1. build   — first launch of each Triton kernel (the kernels package
-             caches builds under ``build/kernels/triton`` unless
-             TRITON_CACHE_DIR says otherwise), and the ``nvcc`` build of the
-             CUDA flash attention kernel into ``build/kernels/cuda`` with its
-             first launch (ptxas' register and spill lines are printed);
+1. build   — one ``nvcc`` per CUDA source (flash attention, SSD scan, MoE
+             router; ``sm_90a``, into ``build/kernels/cuda``), all started
+             at once, while each Triton kernel compiles at its first launch
+             (cached under ``build/kernels/triton`` unless TRITON_CACHE_DIR
+             says otherwise); then each CUDA kernel's first launch and
+             ptxas' register and spill lines;
 2. edge    — every kernel against its plain version at edge shapes; the
              flash kernel over dtypes, GQA groups, head dims, masks and
-             ragged lengths;
-3. main    — the hybrid job, twice with ``ignis.kernels=auto`` (launch
+             ragged lengths; the SSD scan over dtypes, groups, chunks,
+             widths, batches and ragged lengths; the router over expert
+             counts, k, token counts, capacities and tied logits;
+3. hybrid  — the hybrid job, twice with ``ignis.kernels=auto`` (launch
              counters reset before each run) and once with ``off``: branch A
              ``map → reduceByKey(add)`` and ``reduceByKey(max)`` (PSRS sort
              stages whose post hook runs the segment and prefix kernels; the
@@ -33,21 +38,29 @@ Phases (each prints its lines; any failure exits non-zero):
              row in the order it came back, no fallback, no overflow retry
              and no new wide plan on the second run. Each run also reports
              the wall time spent in ``to_host`` (the driver-side conversion
-             of collected blocks to row trees) and in autotune sweeps;
-4. kernels — each hybrid kernel against its plain version on the card at
+             of collected blocks to row trees) and in autotune sweeps. Then
+             each hybrid kernel against its plain version on the card at
              the main path's largest shape (integers bit for bit; float sums
              within a stated tolerance), timed with CUDA events beside its
              bound and, where one exists, the library call;
-5. serve   — after the hybrid job's memory is released: Qwen3-14B (random
-             bf16 weights from a seeded generator) serves 8 requests of
-             512–2048 prompt tokens x 32 new tokens on 4 slots of a
-             4096-position KV slab, each decode tick an IJob task of kind
-             ``serve``. Checks: every ticket resolves with 32 tokens, 40 x 8
-             flash launches, serve tasks in the job, finite logits, and flash
-             against chunked prefill logits on the same weights. Reports
-             prefill ms per request, decode ms per tick, tokens/s and peak
-             memory; then the flash kernel at the largest prefill, timed
-             beside its bound, its plain version and torch's SDPA.
+4. qwen,   — after the previous phase's memory is released, each model
+   mamba,    (random bf16 weights from a seeded generator) serves 8 requests
+   mixtral   of 512–2048 prompt tokens x 32 new tokens on 4 slots of a
+             4096-position slab, each decode tick an IJob task of kind
+             ``serve``: Qwen3-14B (every prefill through the flash kernel),
+             Mamba2-780M (every prefill's mixers through the SSD scan;
+             decode is the O(1) recurrence) and Mixtral-8x7B at 24 of its 32
+             layers (flash with its 4096 window; every prefill's and decode
+             step's FFNs through the router). Checks: every ticket resolves
+             with 32 tokens, each kernel's launches equal layers x prefills
+             (the router: layers x (prefills + decode steps)), serve tasks in
+             the job, finite logits, and the kernels' prefill logits against
+             the plain versions' on the same weights. Reports prefill ms per
+             request, decode ms per tick, tokens/s, request latency, peak
+             memory and, for a tick and the longest prefill, the host's
+             enqueue time against the device's busy time; then the path's
+             new kernel at its largest shape, timed beside its bound, its
+             plain version and, for flash, torch's SDPA.
 
 The last two lines are the ``kernels`` JSON object (with the card's name and
 power limit just before it) and ``{"ok": true, "device": {...}}``.
@@ -55,6 +68,7 @@ power limit just before it) and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -553,7 +567,26 @@ FLASH_TOL = {"torch.bfloat16": (2e-2, 2e-2), "torch.float32": (2e-5, 1e-4)}
 #: order, about one bf16 rounding (2^-9 relative) of each layer's attention
 #: output, which the 40 random-weight layers carry and compound
 SERVE_REL_L2 = 5e-2
+#: relative L2 between the SSD kernel's prefill logits and ``ssd_chunked``'s
+#: on the same values in f32 (what the kernel computes), through Mamba2-780M's
+#: 48 random-weight layers. The stack is chaotic: on the CPU, at reduced width
+#: and full depth, a 1e-6 relative perturbation of each SSD output before its
+#: bf16 rounding moved the logits by 0.11 relative L2, and the bf16 cast
+#: points of ``ssd_chunked`` (the JAX function's) against f32 inside by 0.34
+#: (0.24 on the card at full width). Summation order alone flips a few bf16
+#: roundings per layer, so the logits are held loosely here; the SSD kernel
+#: is held tightly layer by layer, at each layer's own inputs, in the same
+#: prefill (``SSD_TOL``)
+SSM_REL_L2 = 0.3
+#: relative L2 between the router kernel's and its plain version's prefill
+#: logits: the two route identically (expert ids and ordinals are checked bit
+#: for bit in the edge phase) and their weights differ in the last bits, so
+#: the logits differ only by summation order
+MOE_REL_L2 = 1e-2
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_NEW = 4, 4096, 8, 32
+#: Mixtral-8x7B's layers served: all 32 are 46.7e9 parameters, 93.4 GB in
+#: bf16, above the card's 80 GB; 24 are 35.1e9 (65.6 GiB)
+MIXTRAL_LAYERS = 24
 
 
 def flash_flop(q_shape, k_shape, causal, q_offset):
@@ -615,6 +648,223 @@ def flash_edge_checks():
     log(f"edge: flash_attention — {n} cases (bf16/f32 x G {{1, 5}} x hd {{64, 128, "
         f"256}} x causal x window {{None, 16}} x softcap {{0, 50}} x Sq, Skv in "
         f"{lens}): OK; max abs err {worst}")
+
+
+SSD_TOL = {  # (atol, rtol) of the SSD kernel against ssd_chunked in f32
+    # the JAX kernel test's: the cumulative decays and the chunk products
+    # are summed in other orders, and exp of a cumulative sum carries that
+    "torch.float32": (2e-4, 1e-3),
+    # bf16 inputs: the plain version runs on the same values in f32, and the
+    # kernel's y adds one bf16 rounding (2^-9 relative) on top
+    "torch.bfloat16": (1e-3, 5e-3),
+}
+#: the bf16 kernel against the bf16 plain version, which rounds the scores,
+#: both products and the state update to bf16 where the kernel keeps f32
+SSD_BF16_REL_L2 = 2e-2
+MOE_W_ATOL = 1e-6  # router weights: ratios of the same exps, summed in one order
+
+
+def _ssd_inputs(g, B, S, H, P, G, N, dtype):
+    """The JAX kernel test's distributions: x ~ N(0, 1), dt = softplus of
+    N(0, 1), A_log ~ N(0, 0.5), B and C ~ N(0, 0.3)."""
+    import torch
+    import torch.nn.functional as F
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    x = rnd(B, S, H, P).to(dtype)
+    dt = F.softplus(rnd(B, S, H))
+    A_log = rnd(H) * 0.5
+    Bm, Cm = (rnd(B, S, G, N) * 0.3).to(dtype), (rnd(B, S, G, N) * 0.3).to(dtype)
+    return x, dt, A_log, Bm, Cm
+
+
+def ssd_edge_checks():
+    """The SSD kernel against ``ssd_chunked`` on the card: f32 and bf16, G in
+    {1, 2}, chunk in {16, 64, 256}, P in {16, 64}, N in {16, 128}, B in {1,
+    2}; S two chunks (the kernel directly) and two chunks and 7 (through the
+    wrapper, which pads). bf16 is held to the plain version on the same
+    values in f32, and to the bf16 plain version in relative L2. No output
+    may be NaN."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    n, worst, worst_l2, bad = 0, {}, 0.0, []
+    for dt_, G, q, P, N, B in itertools.product((torch.float32, torch.bfloat16), (1, 2),
+                                                (16, 64, 256), (16, 64), (16, 128), (1, 2)):
+        H = 4
+        atol, rtol = SSD_TOL[str(dt_)]
+        for S, fn in ((2 * q, ssd_scan_fwd), (2 * q + 7, ssd_scan)):
+            x, dt, A_log, Bm, Cm = _ssd_inputs(g, B, S, H, P, G, N, dt_)
+            y, st = fn(x, dt, A_log, Bm, Cm, q)
+            yr, sr = ssd_chunked(x.float(), dt, A_log, Bm.float(), Cm.float(), q)
+            what = f"ssd_scan {dt_} B={B} S={S} H={H} P={P} G={G} N={N} chunk={q}"
+            ok = (y.dtype == dt_ and tuple(y.shape) == (B, S, H, P)
+                  and tuple(st.shape) == (B, H, P, N) and not torch.isnan(y).any()
+                  and torch.allclose(y.float(), yr, atol=atol, rtol=rtol)
+                  and torch.allclose(st, sr, atol=2e-4, rtol=1e-3))
+            if not ok:
+                bad.append(f"{what}: max abs err y {max_err(y.float(), yr)}, state "
+                           f"{max_err(st, sr)}")
+            worst[str(dt_)] = max(worst.get(str(dt_), 0.0), max_err(y.float(), yr),
+                                  max_err(st, sr))
+            if dt_ == torch.bfloat16:
+                yb, _ = ssd_chunked(x, dt, A_log, Bm, Cm, q)
+                rel = float((y.float() - yb.float()).norm() / yb.float().norm())
+                worst_l2 = max(worst_l2, rel)
+                if rel > SSD_BF16_REL_L2:
+                    bad.append(f"{what}: relative L2 {rel} to the bf16 plain version")
+            n += 1
+    torch.cuda.synchronize()
+    check(not bad, f"ssd_scan edge checks: {len(bad)} of {n} failed: {bad[:6]}")
+    log(f"edge: ssd_scan — {n} cases (f32/bf16 x G {{1, 2}} x chunk {{16, 64, 256}} x P "
+        f"{{16, 64}} x N {{16, 128}} x B {{1, 2}} x S a multiple of chunk and not): OK; max "
+        f"abs err {worst} (tolerances {SSD_TOL}); bf16 against the bf16 plain version: "
+        f"relative L2 at most {worst_l2:.3e} (tolerance {SSD_BF16_REL_L2})")
+
+
+def _tied_logits(g, T, E):
+    """Random logits whose rows are, in turn, all equal, tied at the top two,
+    tied below the top, or random."""
+    import torch
+
+    x = torch.randn((T, E), generator=g, device="cuda")
+    x[0::4] = 0.5
+    x[1::4, :2] = 3.0
+    x[2::4, 1:] = x[2::4, 1:2]
+    return x
+
+
+def moe_edge_checks():
+    """The router kernel against its plain version on the card: E in {4, 8,
+    16}, k in {1, 2}, T in {1, 4, 255, 2048, 2049} (the kernel on its own
+    ragged edge, and through the wrapper, which pads to 256), a capacity that
+    drops and one that does not, random rows and rows with tied logits.
+    Expert ids, ordinals and keep flags bit for bit; weights within
+    ``MOE_W_ATOL``."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
+    from repro_torch.kernels.moe_route.ops import moe_route
+    from repro_torch.kernels.moe_route.ref import moe_route_ref
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n, worst, bad = 0, 0.0, []
+    for E, k, T, drop, ties in itertools.product((4, 8, 16), (1, 2), (1, 4, 255, 2048, 2049),
+                                                 (False, True), (False, True)):
+        C = max(1, T * k // E // 2) if drop else T * k
+        x = _tied_logits(g, T, E) if ties else torch.randn((T, E), generator=g, device="cuda")
+        ref = moe_route_ref(x, k, C)
+        for fn in (lambda: moe_route_fwd(x, k, C), lambda: moe_route(x, k, C)):
+            got = fn()
+            what = f"moe_route E={E} k={k} T={T} C={C} ties={ties}"
+            for a, b, nm in zip(got[1:], ref[1:], ("idx", "pos", "keep")):
+                if not (a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)):
+                    bad.append(f"{what}: {nm} differs")
+            err = max_err(got[0], ref[0])
+            if got[0].shape != ref[0].shape or err > MOE_W_ATOL:
+                bad.append(f"{what}: weights max abs err {err}")
+            worst = max(worst, err)
+            n += 1
+        if drop and T > 4:
+            check(not ref[3].all(), f"moe_route E={E} T={T} C={C}: nothing dropped")
+    torch.cuda.synchronize()
+    check(not bad, f"moe_route edge checks: {len(bad)} failed of {n}: {bad[:6]}")
+    log(f"edge: moe_route — {n} cases (E {{4, 8, 16}} x k {{1, 2}} x T {{1, 4, 255, 2048, "
+        f"2049}} x capacity dropping or not x tied rows or not, the kernel alone and "
+        f"through the wrapper): ids, ordinals and keep equal; weights max abs err {worst} "
+        f"(tolerance {MOE_W_ATOL})")
+
+
+def ssd_flop_bytes(x_shape, bn_shape, chunk, itemsize):
+    """(operations, bytes) of the SSD scan at these shapes: C·Bᵀ over the
+    causal pairs of each (batch, chunk, group), the scores times x·Δ over the
+    same pairs, C against the carried state and the state update, per head;
+    each input read once and each output written once."""
+    B, S, H, P = x_shape
+    G, N = bn_shape[2], bn_shape[3]
+    nc, pairs = S // chunk, chunk * (chunk + 1) // 2
+    flop = 2 * B * nc * (G * pairs * N + H * (pairs * P + 2 * chunk * N * P))
+    nbytes = (2 * B * S * H * P * itemsize + 2 * B * S * G * N * itemsize + B * S * H * 4
+              + H * 4 + B * H * P * N * 4)
+    return flop, nbytes
+
+
+def ssd_row(launches, reps: int):
+    """The SSD kernel at the Mamba2-780M path's largest prefill, timed beside
+    its bound and ``ssd_chunked``; no PyTorch call computes this function."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    cnt, _t, geoms = launches["ssd_scan"]
+    xs, bs, dts, q = max(geoms, key=lambda gm: gm[0][1])
+    dt_ = getattr(torch, dts.split(".")[1])
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x, dt, A_log, Bm, Cm = _ssd_inputs(g, *xs, bs[2], bs[3], dt_)
+    y, st = ssd_scan_fwd(x, dt, A_log, Bm, Cm, q)
+    yr, sr = ssd_chunked(x.float(), dt, A_log, Bm.float(), Cm.float(), q)
+    atol, rtol = SSD_TOL[dts]
+    check(torch.allclose(y.float(), yr, atol=atol, rtol=rtol)
+          and torch.allclose(st, sr, atol=2e-4, rtol=1e-3),
+          f"ssd_scan at {xs}: max abs err y {max_err(y.float(), yr)}, state {max_err(st, sr)}")
+    flop, nbytes = ssd_flop_bytes(xs, bs, q, x.element_size())
+    t_ops, t_bytes = flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    row = dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:62", launches=cnt,
+        max_abs_err=max(max_err(y.float(), yr), max_err(st, sr)),
+        ms=time_ms(lambda: ssd_scan_fwd(x, dt, A_log, Bm, Cm, q), reps),
+        plain_ms=time_ms(lambda: ssd_chunked(x, dt, A_log, Bm, Cm, q), max(reps // 4, 2)),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
+        shape=[list(xs), list(bs)], dtype=dts, chunk=q, flop=flop, bytes=nbytes)
+    log(f"kernel ssd_scan: x {xs} B/C {bs} {dts} chunk {q} launches {cnt} max_abs_err "
+        f"{row['max_abs_err']} (against the plain version in f32) | {row['ms']:.4f} ms vs "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {flop:.3e} FLOP / 989 TFLOP/s, "
+        f"{nbytes} B / 3.35 TB/s) | plain {row['plain_ms']:.4f} ms | library none")
+    return row
+
+
+def moe_row(launches, reps: int):
+    """The router kernel at the Mixtral path's largest prefill, timed beside
+    its bound and its plain version; no PyTorch call computes this function."""
+    import torch
+
+    from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
+    from repro_torch.kernels.moe_route.ref import moe_route_ref
+
+    cnt, _t, geoms = launches["moe_route"]
+    (T, E), k, C = max(geoms, key=lambda gm: gm[0][0])
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((T, E), generator=g, device="cuda")
+    got, ref = moe_route_fwd(x, k, C), moe_route_ref(x, k, C)
+    for a, b, nm in zip(got[1:], ref[1:], ("idx", "pos", "keep")):
+        exact(a, b, f"moe_route {T}x{E} k={k} C={C} {nm}")
+    err = max_err(got[0], ref[0])
+    check(err <= MOE_W_ATOL, f"moe_route {T}x{E}: weights max abs err {err}")
+    nbytes = T * E * 4 + T * k * (4 + 4 + 4 + 1)
+    row = dict(
+        name="moe_route", route="cuda", source="src/repro_torch/csrc/moe_route.cu",
+        replaces="src/repro/kernels/moe_route/moe_route.py:60", launches=cnt,
+        max_abs_err=err, ms=time_ms(lambda: moe_route_fwd(x, k, C), reps),
+        plain_ms=time_ms(lambda: moe_route_ref(x, k, C), reps),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+        shape=[T, E], k=k, capacity=C, dtype="torch.float32")
+    log(f"kernel moe_route: logits ({T}, {E}) f32 k={k} capacity {C} launches {cnt} "
+        f"max_abs_err {err} | {row['ms']:.4f} ms vs bound {row['bound_ms']:.6f} ms (bytes: "
+        f"{nbytes} B / 3.35 TB/s) | plain {row['plain_ms']:.4f} ms | library none")
+    return row
 
 
 class _Timed:
@@ -680,12 +930,18 @@ def where_time(what, fn, reps=4):
             f"launches of {e.key[:90]}")
 
 
-def serve_path(args):
-    """Qwen3-14B at full width (random weights from a seeded generator) serves
+def serve_phase(args, label, cfg, expect, plain_prefill, rel_tol, note=""):
+    """``cfg`` at full width (random weights from a seeded generator) serves
     8 requests of 512–2048 prompt tokens x 32 new tokens through
     ``ServeFrontDoor`` on a cuda worker: continuous batching on 4 slots of a
-    4096-position bf16 KV slab, one IJob task of kind ``serve`` per tick,
-    every prefill through the flash kernel."""
+    4096-position slab, one IJob task of kind ``serve`` per tick.
+
+    ``expect(prefills, ticks)`` gives the launches each kernel of the path
+    must make in the run; ``plain_prefill(bundle, params, tokens)`` gives
+    the last-position logits of a prefill through the plain versions of the
+    path's kernels, held to the kernels' within relative L2 ``rel_tol`` on
+    two of the prompts. Returns ({kernel: (launches,
+    sweep launches, geometries)}, report)."""
     import dataclasses
     import gc
 
@@ -693,7 +949,6 @@ def serve_path(args):
     import torch
 
     from repro_torch import kernels as K
-    from repro_torch.configs import get_config
     from repro_torch.core import ICluster, IJob, IProperties, IWorker
     from repro_torch.models import build_model
     from repro_torch.serving import ServeEngine
@@ -702,25 +957,25 @@ def serve_path(args):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    log(f"serve: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+    log(f"{label}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
         f"before the model")
-    cfg = get_config("qwen3-14b").with_overrides(attn_impl="flash")
     bundle = build_model(cfg)
     t0 = time.perf_counter()
     params = bundle.init(torch.Generator(device="cuda").manual_seed(args.seed))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"serve: {cfg.name} ({cfg.source}) at full width, {n_params} parameters in "
-        f"{cfg.param_dtype}, initialised on the card in {time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    log(f"{label}: {cfg.name} ({cfg.source}) at full width{note}, {n_params} parameters "
+        f"in {cfg.param_dtype}, initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated")
 
     w = IWorker(ICluster(IProperties({"ignis.device": "cuda"})), "python")
     check(params.device == w.device, f"model on {params.device}, worker on {w.device}")
     engine = ServeEngine(bundle, params, slots=SERVE_SLOTS, cache_len=SERVE_CACHE_LEN)
-    prefill = _Timed(bundle.prefill, "prefill")
-    decode = _Timed(bundle.decode_step, "decode")
+    prefill = _Timed(bundle.prefill, f"{label} prefill")
+    decode = _Timed(bundle.decode_step, f"{label} decode")
     engine.bundle = dataclasses.replace(bundle, prefill=prefill, decode_step=decode)
-    job = IJob("serve")
+    job = IJob(label)
     fd = ServeFrontDoor(engine, w, job=job)
     rng = np.random.default_rng(args.seed)
     lens = rng.integers(512, 2049, SERVE_REQUESTS)
@@ -732,31 +987,33 @@ def serve_path(args):
     fd.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    flash = K.launch_counters()["flash_attention"]
-    launches = {"flash_attention": (flash.launches, flash.tune_launches,
-                                    sorted(flash.geometries))}
+    fns = K.launch_counters()
+    want = expect(len(prefill.ms), len(decode.ms))
+    launches = {k: (fns[k].launches, fns[k].tune_launches, sorted(fns[k].geometries))
+                for k in want}
     peak = torch.cuda.max_memory_allocated()
 
     done = [t.result(60.0) for t in tickets]
     check(all(r is not None and len(r.tokens) == SERVE_NEW for r in done),
-          f"not every request resolved with {SERVE_NEW} tokens")
-    want = cfg.num_layers * SERVE_REQUESTS
-    check(flash.launches == want, f"flash launches {flash.launches}, expected {want} "
-          f"({cfg.num_layers} layers x {SERVE_REQUESTS} prefills)")
+          f"{label}: not every request resolved with {SERVE_NEW} tokens")
+    check(len(prefill.ms) == SERVE_REQUESTS, f"{label}: {len(prefill.ms)} prefills")
+    for k, n in want.items():
+        check(fns[k].launches == n, f"{label}: {k} launches {fns[k].launches}, expected {n}")
     tasks = job.metrics("tasks")
-    check(tasks["serve"] > 0 and tasks["failed"] == 0, f"job tasks {tasks}")
+    check(tasks["serve"] > 0 and tasks["failed"] == 0, f"{label}: job tasks {tasks}")
     st = fd.stats()
     gen = sum(len(r.tokens) for r in done)
-    log(f"serve: {len(done)} requests (prompt lengths {lens.tolist()}) x {SERVE_NEW} "
+    log(f"{label}: {len(done)} requests (prompt lengths {lens.tolist()}) x {SERVE_NEW} "
         f"tokens in {wall * 1e3:.1f} ms: {gen / wall:.1f} generated tokens/s; "
-        f"{tasks['serve']} serve ticks in the IJob; flash launches {flash.launches}")
-    log(f"serve: prefill (time to first token) ms per request "
+        f"{tasks['serve']} serve ticks in the IJob, {len(decode.ms)} decode steps; kernel "
+        f"launches { {k: fns[k].launches for k in want} } (expected {want})")
+    log(f"{label}: prefill (time to first token) ms per request "
         f"{[round(x, 3) for x in prefill.ms]}; mean {np.mean(prefill.ms):.3f}")
-    log(f"serve: decode ms per tick over {len(decode.ms)} ticks: median "
+    log(f"{label}: decode ms per tick over {len(decode.ms)} ticks: median "
         f"{np.median(decode.ms):.3f}, mean {np.mean(decode.ms):.3f}, min "
         f"{min(decode.ms):.3f}, max {max(decode.ms):.3f}")
     lat = [t.latency_ms for t in tickets]
-    log(f"serve: request latency p50 {np.percentile(lat, 50):.1f} ms, max "
+    log(f"{label}: request latency p50 {np.percentile(lat, 50):.1f} ms, max "
         f"{max(lat):.1f} ms (from submission; all {SERVE_REQUESTS} queued at once); "
         f"front door {st['ticks']} ticks, {st['telemetry']['completed']} completed; "
         f"peak max_memory_allocated {peak / 2**30:.2f} GiB")
@@ -764,26 +1021,146 @@ def serve_path(args):
     # where a tick's and a prefill's time goes: host enqueue against device
     longest = torch.as_tensor(prompts[int(np.argmax(lens))], device="cuda")[None]
     toks = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device="cuda")
-    where_time("decode tick", lambda: bundle.decode_step(params, engine.cache, toks))
-    where_time(f"prefill of {longest.shape[1]} tokens",
+    where_time(f"{label} decode tick", lambda: bundle.decode_step(params, engine.cache, toks))
+    where_time(f"{label} prefill of {longest.shape[1]} tokens",
                lambda: bundle.prefill(params, tokens=longest))
 
-    # flash against chunked prefill on the same weights (two of the prompts)
-    chunked = build_model(cfg.with_overrides(attn_impl="chunked"))
+    # the kernels against their plain versions in prefill, on the same weights
     for i in (int(np.argmin(lens)), int(np.argmax(lens))):
         tok = torch.as_tensor(prompts[i], device="cuda")[None]
-        lf, _ = bundle.prefill(params, tokens=tok)
-        lc, _ = chunked.prefill(params, tokens=tok)
-        rel = float((lf.float() - lc.float()).norm() / lc.float().norm())
-        log(f"serve: prompt {i} ({len(prompts[i])} tokens): flash vs chunked prefill "
-            f"logits relative L2 {rel:.3e} (tolerance {SERVE_REL_L2}); argmax "
-            f"{int(lf.argmax())} vs {int(lc.argmax())}")
-        check(rel <= SERVE_REL_L2, f"flash and chunked prefill logits differ: rel L2 {rel}")
+        lk, _ = bundle.prefill(params, tokens=tok)
+        lp = plain_prefill(bundle, params, tok)
+        rel = float((lk.float() - lp.float()).norm() / lp.float().norm())
+        log(f"{label}: prompt {i} ({len(prompts[i])} tokens): kernels vs plain prefill "
+            f"logits relative L2 {rel:.3e} (tolerance {rel_tol}); argmax "
+            f"{int(lk.argmax())} vs {int(lp.argmax())}")
+        check(rel <= rel_tol, f"{label}: kernel and plain prefill logits differ: rel L2 {rel}")
     report = dict(prefill_ms=prefill.ms, decode_ms=decode.ms, wall_ms=wall * 1e3,
                   tokens_per_s=gen / wall, peak_gib=peak / 2**30)
-    del params, engine, fd, chunked
+    del params, engine, fd, bundle
     gc.collect()
     torch.cuda.empty_cache()
+    return launches, report
+
+
+@contextlib.contextmanager
+def _swapped(module, name, fn):
+    """``module.name`` is ``fn`` inside the block (the models import the
+    kernels' wrappers from their packages at each call)."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def serve_qwen(args):
+    """Qwen3-14B, nothing cut: every prefill through the flash kernel; the
+    plain prefill takes the chunked attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen3-14b").with_overrides(attn_impl="flash")
+    chunked = build_model(cfg.with_overrides(attn_impl="chunked"))
+    return serve_phase(args, "serve", cfg,
+                       lambda prefills, ticks: {"flash_attention": cfg.num_layers * prefills},
+                       lambda bundle, params, tok: chunked.prefill(params, tokens=tok)[0],
+                       SERVE_REL_L2)
+
+
+def _f32_ssd(x, dt, A_log, Bm, Cm, chunk):
+    """``ssd_chunked`` on the same values in f32, y rounded once to x's dtype:
+    what the SSD kernel computes."""
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    y, st = ssd_chunked(x.float(), dt, A_log, Bm.float(), Cm.float(), chunk)
+    return y.to(x.dtype), st
+
+
+def serve_mamba(args):
+    """Mamba2-780M, nothing cut: every prefill's mixers through the SSD
+    scan kernel (decode is the O(1) recurrence, as in the JAX package). The
+    plain prefill takes ``ssd_chunked`` on the same values in f32; before
+    it, a prefill through the kernel holds each layer's SSD output against
+    ``ssd_chunked`` at that layer's own inputs, and reports how far the
+    bf16 ``ssd_chunked`` (the CPU's path) moves the logits."""
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels.ssd_scan as pkg
+    from repro_torch.configs import get_config
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    cfg = get_config("mamba2-780m")
+    kernel = pkg.ssd_scan
+
+    def plain_prefill(bundle, params, tokens):
+        worst = {"y": 0.0, "state": 0.0, "bad": []}
+
+        def checked(x, dt, A_log, Bm, Cm, chunk):
+            y, st = kernel(x, dt, A_log, Bm, Cm, chunk)
+            yr, sr = _f32_ssd(x, dt, A_log, Bm, Cm, chunk)
+            atol, rtol = SSD_TOL[str(x.dtype)]
+            yr32 = ssd_chunked(x.float(), dt, A_log, Bm.float(), Cm.float(), chunk)[0]
+            if not (torch.allclose(y.float(), yr32, atol=atol, rtol=rtol)
+                    and torch.allclose(st, sr, atol=2e-4, rtol=1e-3)):
+                worst["bad"].append(len(worst["bad"]))
+            worst["y"] = max(worst["y"], max_err(y.float(), yr32))
+            worst["state"] = max(worst["state"], max_err(st, sr))
+            return y, st
+
+        with _swapped(pkg, "ssd_scan", checked):
+            bundle.prefill(params, tokens=tokens)
+        log(f"mamba: {tokens.shape[1]} tokens, the SSD kernel layer by layer against "
+            f"ssd_chunked at each layer's inputs: max abs err y {worst['y']}, state "
+            f"{worst['state']} (tolerances {SSD_TOL[str(torch.bfloat16)]}, (2e-4, 1e-3))")
+        check(not worst["bad"], f"mamba: the SSD kernel differs from ssd_chunked in "
+              f"{len(worst['bad'])} layers")
+        with _swapped(pkg, "ssd_scan", ssd_chunked):
+            lb = bundle.prefill(params, tokens=tokens)[0]
+        with _swapped(pkg, "ssd_scan", _f32_ssd):
+            lp = bundle.prefill(params, tokens=tokens)[0]
+        lk = bundle.prefill(params, tokens=tokens)[0]
+        rel = float((lk.float() - lb.float()).norm() / lb.float().norm())
+        log(f"mamba: {tokens.shape[1]} tokens: kernel vs bf16 ssd_chunked (the JAX cast "
+            f"points) prefill logits relative L2 {rel:.3e} (not held: see SSM_REL_L2); "
+            f"argmax {int(np.argmax(lk.float().cpu()))} vs {int(np.argmax(lb.float().cpu()))}")
+        return lp
+
+    return serve_phase(args, "mamba", cfg,
+                       lambda prefills, ticks: {"ssd_scan": cfg.num_layers * prefills},
+                       plain_prefill, SSM_REL_L2)
+
+
+def serve_mixtral(args):
+    """Mixtral-8x7B at full width, ``MIXTRAL_LAYERS`` of its 32 layers:
+    every prefill through the flash kernel with its 4096 window, every
+    prefill and decode step's FFNs through the router kernel; the plain
+    prefill takes the router's plain version."""
+    import repro_torch.kernels.moe_route as pkg
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_route.ref import moe_route_ref
+
+    full = get_config("mixtral-8x7b")
+    cfg = full.with_overrides(num_layers=MIXTRAL_LAYERS, attn_impl="flash")
+
+    def plain(logits, k, capacity, *a):
+        return moe_route_ref(logits, k, capacity)
+
+    def plain_prefill(bundle, params, tokens):
+        with _swapped(pkg, "moe_route", plain):
+            return bundle.prefill(params, tokens=tokens)[0]
+
+    launches, report = serve_phase(
+        args, "mixtral", cfg,
+        lambda prefills, ticks: {"flash_attention": cfg.num_layers * prefills,
+                                 "moe_route": cfg.num_layers * (prefills + ticks)},
+        plain_prefill, MOE_REL_L2,
+        note=f", {cfg.num_layers} of its {full.num_layers} layers (the weights of all 32 "
+             f"are 93.4 GB in bf16, above the card's 80 GB)")
+    windows = {g[4] for g in launches["flash_attention"][2]}
+    check(windows == {full.sliding_window}, f"mixtral: flash windows {windows}")
     return launches, report
 
 
@@ -843,30 +1220,61 @@ def flash_row(launches, reps: int):
     return row
 
 
+CUDA_SOURCES = ("flash_attention", "ssd_scan", "moe_route")
+PHASES = ("build", "edge", "hybrid", "qwen", "mamba", "mixtral")
+
+
 def build():
+    """Start one ``nvcc`` per CUDA source at once, compile the Triton kernels
+    meanwhile, then launch each CUDA kernel once and print what ptxas said
+    (registers, spills) of it."""
+    import threading
+
     import torch
 
-    from repro_torch.kernels import registry
+    from repro_torch.kernels import _cuda, registry
 
+    t0 = time.perf_counter()
+    built, failed = {}, []
+
+    def nvcc_all():
+        try:
+            built.update(_cuda.load_all(CUDA_SOURCES))
+        except Exception as e:  # reported below, after the Triton builds
+            failed.append(e)
+
+    th = threading.Thread(target=nvcc_all)
+    th.start()
     for name, probe in registry._PROBES.items():
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         probe("cuda")
         torch.cuda.synchronize()
         log(f"build: {name} first launch (Triton compile) "
-            f"{time.perf_counter() - t0:.2f} s")
+            f"{time.perf_counter() - t1:.2f} s")
+    th.join()
+    if failed:
+        raise SmokeFailure(f"nvcc build failed: {failed[0]}")
+    log(f"build: {len(built)} CUDA libraries "
+        f"{[_cuda.library_path(n).name for n in CUDA_SOURCES]} built by parallel nvcc runs "
+        f"in {time.perf_counter() - t0:.2f} s (wall, beside the Triton builds)")
 
-    from repro_torch.kernels import _cuda
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
 
-    t0 = time.perf_counter()
     x = torch.zeros((1, 1, 1, 64), device="cuda")
     flash_attention_fwd(x, x, x)
+    xs = torch.zeros((1, 16, 2, 16), device="cuda")
+    bn = torch.zeros((1, 16, 1, 16), device="cuda")
+    ssd_scan_fwd(xs, torch.zeros((1, 16, 2), device="cuda"), torch.zeros(2, device="cuda"),
+                 bn, bn, 16)
+    moe_route_fwd(torch.zeros((3, 4), device="cuda"), 2, 2)
     torch.cuda.synchronize()
-    log(f"build: flash_attention nvcc build ({_cuda.library_path('flash_attention').name}) "
-        f"and first launch {time.perf_counter() - t0:.2f} s")
-    for line in _cuda.build_logs.get("flash_attention", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"build: ptxas: {line.strip()}")
+    log("build: first launches of " + ", ".join(CUDA_SOURCES) + ": OK")
+    for name in CUDA_SOURCES:
+        for line in _cuda.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"build: ptxas {name}: {line.strip()}")
 
 
 def main() -> int:
@@ -875,7 +1283,12 @@ def main() -> int:
     ap.add_argument("--p", type=int, default=8, help="virtual executor ranks")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20, help="timed launches per kernel")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {PHASES} (default all of them)")
     args = ap.parse_args()
+    phases = set(args.phases.split(","))
+    if not phases <= set(PHASES):
+        ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
 
     import torch
 
@@ -893,14 +1306,27 @@ def main() -> int:
     # the plain versions' f32 products in full f32, as the kernels compute
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    rows = []
     try:
-        build()
-        edge_checks()
-        flash_edge_checks()
-        launches = main_path(args)
-        rows = kernel_checks(launches, args.reps)
-        serve_launches, _ = serve_path(args)
-        rows.append(flash_row(serve_launches, args.reps))
+        if "build" in phases:
+            build()
+        if "edge" in phases:
+            edge_checks()
+            flash_edge_checks()
+            ssd_edge_checks()
+            moe_edge_checks()
+        if "hybrid" in phases:
+            launches = main_path(args)
+            rows += kernel_checks(launches, args.reps)
+        if "qwen" in phases:
+            launches, _ = serve_qwen(args)
+            rows.append(flash_row(launches, args.reps))
+        if "mamba" in phases:
+            launches, _ = serve_mamba(args)
+            rows.append(ssd_row(launches, args.reps))
+        if "mixtral" in phases:
+            launches, _ = serve_mixtral(args)
+            rows.append(moe_row(launches, args.reps))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -5,4 +5,9 @@ yet (ROADMAP A.8)."""
 from repro_torch.configs.base import (ArchConfig, SHAPES, ShapeCell,  # noqa: F401
                                       get_config, list_configs)
 
-from repro_torch.configs import paper_app, qwen3_14b  # noqa: F401  (registration)
+from repro_torch.configs import (  # noqa: F401  (registration)
+    mamba2_780m,
+    mixtral_8x7b,
+    paper_app,
+    qwen3_14b,
+)

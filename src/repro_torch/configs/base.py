@@ -3,8 +3,9 @@
 
 Every architecture is a frozen ``ArchConfig``; ``reduced()`` derives a tiny
 same-family config for CPU tests. The port registers the configurations its
-slices run: ``qwen3-14b`` (the dense serving path) and the paper's own
-presets ``ignis-tiny`` / ``ignis-100m``. The other architectures of the JAX
+slices run: ``qwen3-14b`` (the dense serving path), ``mamba2-780m`` (the
+SSM family), ``mixtral-8x7b`` (the MoE family) and the paper's own presets
+``ignis-tiny`` / ``ignis-100m``. The other architectures of the JAX
 package come with their families (ROADMAP A.8). The analytic parameter
 count is not ported: a model's parameters are counted from its module.
 """

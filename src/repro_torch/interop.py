@@ -42,15 +42,18 @@ def _tensor(a) -> torch.Tensor:
 
 
 def params_from_reference(params_np, cfg, device="cpu"):
-    """The port's ``TransformerLM`` holding the JAX package's weights.
+    """The port's model of ``cfg``'s family (``TransformerLM`` for dense and
+    MoE, ``SSMLM`` for SSM) holding the JAX package's weights.
 
     ``params_np`` is the JAX parameter tree of ``cfg`` with its leaves taken
     to numpy (layers stacked on axis 0). Every leaf lands in the parameter
-    of the same path (``layers.<i>.attn.wq`` ← ``layers/attn/wq[i]``), with
-    its shape and dtype checked; every leaf must be used."""
-    from repro_torch.models.transformer import TransformerLM
+    of the same path (``layers.<i>.attn.wq`` ← ``layers/attn/wq[i]``,
+    ``layers.<i>.ffn.router`` ← ``layers/ffn/router[i]``,
+    ``layers.<i>.mixer.A_log`` ← ``layers/mixer/A_log[i]``), with its shape
+    and dtype checked; every leaf must be used."""
+    from repro_torch.models.model_zoo import build_module
 
-    lm = TransformerLM(cfg, device=device)
+    lm = build_module(cfg, device=device)
     used = set()
     with torch.no_grad():
         for name, p in lm.named_parameters():

@@ -1,5 +1,5 @@
 """Hand-written Hopper kernels: the shuffle engine's wide stages and the
-model zoo's attention.
+model zoo's attention, SSD scan and MoE router.
 
 Each package holds the kernel (Triton ``triton.jit`` bodies in
 ``_triton.py``, or CUDA C++ under ``src/repro_torch/csrc`` built by
@@ -8,13 +8,17 @@ version (``ref.py``) and the wrapper (``ops.py``) that pads, masks and picks
 between them by the device of the tensor it is given:
 
   ssd_scan        — ``prefix_scan``: inclusive 1-D sum/min/max scan (the
-                    suffix-min of ``segment_totals``' last-row gather)
+                    suffix-min of ``segment_totals``' last-row gather);
+                    ``ssd_scan``: the Mamba-2 SSD chunk scan (CUDA C++), the
+                    SSM mixer's prefill
   segment_reduce  — ``segment_reduce`` / ``segment_totals``: inclusive
                     segmented scan, the reduceByKey post hook
   moe_route       — ``bucket_route``: capacity ordinals for the hash
-                    exchange of partitionBy / join
+                    exchange of partitionBy / join; ``moe_route``: softmax,
+                    top-k and expert capacity ordinals (CUDA C++), the MoE
+                    FFN's router
   flash_attention — ``flash_attention``: online-softmax attention forward
-                    (CUDA C++), the dense models' prefill attention
+                    (CUDA C++), the transformers' prefill attention
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises — never the plain version. Each kernel's
@@ -102,14 +106,18 @@ def tile(block: int, n: int) -> int:
 def launch_counters() -> dict:
     """``{kernel name: dispatching function}`` for every kernel."""
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
     from repro_torch.kernels.moe_route.route import bucket_route_fwd
     from repro_torch.kernels.segment_reduce.segment_reduce import segment_reduce_fwd
     from repro_torch.kernels.ssd_scan.prefix import prefix_scan_fwd
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
 
     return {"segment_reduce": segment_reduce_fwd,
             "prefix_scan": prefix_scan_fwd,
             "bucket_route": bucket_route_fwd,
-            "flash_attention": flash_attention_fwd}
+            "flash_attention": flash_attention_fwd,
+            "ssd_scan": ssd_scan_fwd,
+            "moe_route": moe_route_fwd}
 
 
 def reset_launches() -> None:

@@ -22,18 +22,11 @@ _fn = None
 
 
 def _entry():
-    """The C entry point, with its argument types declared (a pointer
-    passed without ``c_void_p`` would be cut to 32 bits)."""
     global _fn
     if _fn is None:
-        lib = _cuda.load("flash_attention")
-        fn = lib.flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _fn = fn
+        _fn = _cuda.entry("flash_attention", "flash_attention_fwd",
+                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                          + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     return _fn
 
 
@@ -86,10 +79,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=0.0,
                  B, H, H // k.shape[1], Sq, Skv, hd, int(q_offset), kv_len, int(bool(causal)),
                  -1 if window is None else int(window), float(softcap or 0.0), hd**-0.5,
                  torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        msg = _cuda.load("flash_attention").flash_attention_error_string(err)
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err} "
-                           f"({msg.decode() if msg else '?'})")
+    _cuda.raise_on_error("flash_attention", err, "flash attention")
     count_launch(flash_attention_fwd, (tuple(q.shape), tuple(k.shape), str(q.dtype),
                                        bool(causal), window, float(softcap), int(q_offset)))
     return o

@@ -1,14 +1,30 @@
-"""Public bucket-route wrapper: sentinel padding, empty input.
-
-The MoE router itself (softmax + top-k + expert ordinals) is not part of
-the port yet; this package holds the shuffle exchange's router, which reuses
-its capacity-ordinal technique.
+"""Public routing wrappers: the MoE router (``moe_route``: padding) and
+the shuffle exchange's router (``bucket_route``: sentinel padding, empty
+input), which reuses the MoE router's capacity-ordinal technique. The
+tensors' device picks kernel or plain version.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
 from repro_torch.kernels.moe_route.route import bucket_route_fwd
+
+
+def moe_route(logits: torch.Tensor, k: int, capacity: int, block_t: int = 256):
+    """logits: (T, E). Returns (weights f32, idx i32, pos i32, keep bool),
+    each (T, k). Tokens are padded to a multiple of ``block_t`` with -1e9
+    logits, as the JAX wrapper pads: the padding comes after every real
+    token, so it claims no ordinal before them, and it is sliced off."""
+    T, E = logits.shape
+    pad = (-T) % block_t if T > block_t else 0
+    x = logits
+    if pad:
+        x = torch.cat([x, x.new_full((pad, E), -1e9)])
+    if x.is_cuda:
+        x = x.float().contiguous()
+    w, idx, pos, keep = moe_route_fwd(x, k, capacity)
+    return w[:T], idx[:T], pos[:T], keep[:T]
 
 
 def bucket_route(dest: torch.Tensor, p: int, capacity: int, block: int = 512):

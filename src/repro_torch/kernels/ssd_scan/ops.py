@@ -1,14 +1,37 @@
-"""Public prefix-scan wrapper: bool as i32, reversal, identity padding.
+"""Public SSD scan and prefix-scan wrappers.
 
-``prefix_scan`` is the shuffle engine's prefix pass (the reference hosts it
-beside the SSD scan because the Pallas kernel reuses the SSD carry
-pattern). The SSD scan itself is not part of the port yet.
+``ssd_scan`` is the Mamba-2 SSD chunk scan (the mixer's prefill); it pads S
+to a whole number of chunks with dt = 0 (decay 1, input 0: a state no-op),
+as ``ssd_chunked`` does. ``prefix_scan`` is the shuffle engine's prefix pass
+(the reference hosts it beside the SSD scan because its Pallas kernel reuses
+the SSD carry pattern). The tensors' device picks kernel or plain version.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.prefix import op_identity, prefix_scan_fwd
+from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
+
+
+def ssd_scan(x, dt, A_log, Bm, Cm, chunk):
+    """x: (B, S, H, P); dt: (B, S, H); A_log: (H,); Bm/Cm: (B, S, G, N).
+    Returns (y (B, S, H, P), final state (B, H, P, N) f32). There is no
+    backward yet: a CUDA call whose inputs require grad raises (ROADMAP
+    A.8.1, the training slice)."""
+    S = x.shape[1]
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    if x.is_cuda:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+        dt, A_log = dt.float().contiguous(), A_log.float().contiguous()
+    y, state = ssd_scan_fwd(x, dt, A_log, Bm, Cm, chunk)
+    return y[:, :S], state
 
 
 def prefix_scan(x: torch.Tensor, op: str = "sum", block: int = 512,

@@ -1,7 +1,16 @@
-"""Plain torch version of the prefix-scan kernel (= torch's cumulative ops)."""
+"""Plain torch versions of the SSD scan kernel (= the model-side chunked
+SSD) and of the prefix-scan kernel (= torch's cumulative ops)."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.mamba2 import ssd_chunked
+
+
+def ssd_ref(x, dt, A_log, Bm, Cm, chunk):
+    """x: (b, s, h, p); dt: (b, s, h) (softplus applied); A_log: (h,);
+    Bm/Cm: (b, s, g, n). Returns (y, final_state)."""
+    return ssd_chunked(x, dt, A_log, Bm, Cm, chunk)
 
 
 def _cum(v: torch.Tensor, op: str) -> torch.Tensor:

@@ -1,0 +1,82 @@
+"""Mamba-2 SSD chunk scan — CUDA C++ kernel for Hopper.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/ssd_scan/ssd_scan.py::
+ssd_scan_fwd``. The kernel's source, ``src/repro_torch/csrc/ssd_scan.cu``,
+says what bounds it and how it is laid out; it is built with ``nvcc`` at the
+first launch (``kernels/_cuda.py``) and called through ``ctypes`` on the
+tensors' current stream.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _cuda, count_launch, counted, require_cuda
+from repro_torch.kernels.ssd_scan.ref import ssd_ref
+
+#: the largest chunk the kernel takes (a row tile of the chunk's score
+#: matrix and the chunk's x·Δ sit in shared memory)
+MAX_CHUNK = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        _fn = _cuda.entry("ssd_scan", "ssd_scan_fwd",
+                          [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    return _fn
+
+
+def _check(x, dt, A_log, Bm, Cm, chunk):
+    require_cuda(x, dt, A_log, Bm, Cm)
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise ValueError(f"ssd_scan kernel takes float32 or bfloat16 x, Bm, Cm of one "
+                         f"dtype, got {x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if dt.dtype != torch.float32 or A_log.dtype != torch.float32:
+        raise ValueError(f"ssd_scan kernel takes float32 dt and A_log, got {dt.dtype}, "
+                         f"{A_log.dtype}")
+    if x.ndim != 4 or Bm.ndim != 4 or Bm.shape != Cm.shape:
+        raise ValueError(f"ssd_scan kernel takes x (B, S, H, P), Bm = Cm (B, S, G, N), "
+                         f"got {tuple(x.shape)}, {tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    B, S, H, _ = x.shape
+    if (tuple(dt.shape) != (B, S, H) or tuple(A_log.shape) != (H,)
+            or tuple(Bm.shape[:2]) != (B, S) or H % Bm.shape[2]):
+        raise ValueError(f"ssd_scan kernel: dt {tuple(dt.shape)}, A_log "
+                         f"{tuple(A_log.shape)}, Bm {tuple(Bm.shape)} do not fit x "
+                         f"{tuple(x.shape)} (H must be a multiple of G)")
+    if not 0 < chunk <= MAX_CHUNK or S % chunk:
+        raise ValueError(f"ssd_scan kernel takes 0 < chunk <= {MAX_CHUNK} dividing S, got "
+                         f"chunk {chunk}, S {S} (ops.ssd_scan pads S)")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A_log, Bm, Cm)):
+        raise NotImplementedError(
+            "the ssd_scan kernel has no backward yet: run it under torch.no_grad(); "
+            "its autograd.Function comes with the training slice (ROADMAP A.8.1)")
+
+
+@counted
+def ssd_scan_fwd(x, dt, A_log, Bm, Cm, chunk):
+    """x: (B, S, H, P); dt: (B, S, H) f32; A_log: (H,) f32; Bm/Cm: (B, S, G,
+    N); S % chunk == 0. Returns (y (B, S, H, P) in x's dtype, final state
+    (B, H, P, N) f32). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    if not x.is_cuda:
+        return ssd_ref(x, dt, A_log, Bm, Cm, chunk)
+    _check(x, dt, A_log, Bm, Cm, chunk)
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    y = torch.empty_like(x)
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    # scratch: C·Bᵀ of every (batch, chunk, group), computed once per group
+    cb = torch.empty((B, S // chunk, G, chunk, chunk), dtype=torch.float32, device=x.device)
+    fn = _entry()
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bm.data_ptr(),
+                 Cm.data_ptr(), y.data_ptr(), state.data_ptr(), cb.data_ptr(),
+                 _DTYPES[x.dtype], B, S, H, P, G, N, int(chunk),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _cuda.raise_on_error("ssd_scan", err, "ssd_scan")
+    count_launch(ssd_scan_fwd, (tuple(x.shape), tuple(Bm.shape), str(x.dtype), int(chunk)))
+    return y, state

@@ -1,5 +1,6 @@
 """build_model(cfg): one uniform bundle per architecture family (the port
-of ``repro.models.model_zoo``, serving surface, dense family).
+of ``repro.models.model_zoo``, serving surface: the dense, MoE and SSM
+families).
 
 Bundle surface (everything the serving engine needs):
   init(generator)                → params (on the generator's device)
@@ -7,8 +8,10 @@ Bundle surface (everything the serving engine needs):
   decode_step(params, cache, tokens)        → (logits, cache)
   make_cache(batch, max_len, device="cuda") → cache dict (zeros)
 
-Training (``train_loss``/``train_step``), the abstract input specs of the
-dry run and the other families come later (ROADMAP A.8).
+``build_module(cfg, device)`` makes a family's module with its weights left
+uninitialised (``interop.params_from_reference`` fills one). Training
+(``train_loss``/``train_step``), the abstract input specs of the dry run and
+the hybrid, VLM and audio families come later (ROADMAP A.8).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import ssm, transformer
 
 
 @dataclass
@@ -29,18 +32,43 @@ class ModelBundle:
     make_cache: Callable
 
 
+def _unported(cfg: ArchConfig):
+    return NotImplementedError(
+        f"family {cfg.family!r} is not ported yet (ROADMAP A.8: the other families of the "
+        f"model zoo)")
+
+
+def build_module(cfg: ArchConfig, device=None):
+    """The family's module on ``device``, weights uninitialised."""
+    if cfg.family in ("dense", "moe"):
+        return transformer.TransformerLM(cfg, device=device)
+    if cfg.family == "ssm":
+        return ssm.SSMLM(cfg, device=device)
+    raise _unported(cfg)
+
+
 def build_model(cfg: ArchConfig) -> ModelBundle:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP A.8: the other "
-            f"families of the model zoo)")
-    return ModelBundle(
-        cfg=cfg,
-        init=functools.partial(transformer.make_lm_params, cfg=cfg),
-        prefill=lambda params, *, tokens, cache_len=None: transformer.lm_prefill(
-            params, tokens, cfg, cache_len=cache_len),
-        decode_step=lambda params, cache, tok: transformer.lm_decode_step(
-            params, cache, tok, cfg),
-        make_cache=lambda batch, max_len, device="cuda": transformer.make_cache(
-            cfg, batch, max_len, device=device),
-    )
+    if cfg.family in ("dense", "moe"):
+        return ModelBundle(
+            cfg=cfg,
+            init=functools.partial(transformer.make_lm_params, cfg=cfg),
+            prefill=lambda params, *, tokens, cache_len=None: transformer.lm_prefill(
+                params, tokens, cfg, cache_len=cache_len),
+            decode_step=lambda params, cache, tok: transformer.lm_decode_step(
+                params, cache, tok, cfg),
+            make_cache=lambda batch, max_len, device="cuda": transformer.make_cache(
+                cfg, batch, max_len, device=device),
+        )
+    if cfg.family == "ssm":
+        return ModelBundle(
+            cfg=cfg,
+            init=functools.partial(ssm.make_ssm_params, cfg=cfg),
+            prefill=lambda params, *, tokens, cache_len=None: ssm.ssm_prefill(
+                params, tokens, cfg),
+            decode_step=lambda params, cache, tok: ssm.ssm_decode_step(
+                params, cache, tok, cfg),
+            # the recurrent state is O(1): max_len is not used
+            make_cache=lambda batch, max_len, device="cuda": ssm.make_ssm_cache(
+                cfg, batch, device=device),
+        )
+    raise _unported(cfg)

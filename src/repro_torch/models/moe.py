@@ -1,0 +1,100 @@
+"""Mixture-of-Experts FFN with sort-free capacity dispatch (the port of
+``repro.models.moe``).
+
+The router's softmax, top-k, renormalisation and per-expert capacity
+ordinals come from the router kernel (``repro_torch.kernels.moe_route``:
+CUDA on the card, its plain version on the CPU), where the JAX function
+computes them with ``lax.top_k`` and a stable argsort; both give each
+assignment its rank within its expert in token-major, slot-minor order.
+Tokens are then packed into an (E, capacity, D) buffer with capacity
+dropping, run through batched per-expert SwiGLU products, and scattered back
+with their router weights. The load-balancing auxiliary loss follows
+Switch/ST-MoE. The router product ``x @ router``, the packing, the expert
+products, the scatter and the loss stay plain torch, as they are plain jnp
+outside any kernel in the JAX package.
+
+Expert parallelism (the JAX package's ``moe_ep``) is not ported
+(ROADMAP A.8.3): the JAX ``moe_apply`` takes it only on a mesh whose data
+axis has several devices, and the port runs on one.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.models.layers import weight
+
+
+class MoE(nn.Module):
+    """``router`` (D, E) f32; ``w_gate``, ``w_up`` (E, D, F) and ``w_down``
+    (E, F, D) in the parameter dtype — the JAX package's ``make_moe_params``."""
+
+    def __init__(self, cfg, dtype, device=None, generator=None):
+        super().__init__()
+        E, D, Fd = cfg.num_experts, cfg.d_model, cfg.d_ff
+        self.router = weight((D, E), torch.float32, device, generator)
+        self.w_gate = weight((E, D, Fd), dtype, device, generator)
+        self.w_up = weight((E, D, Fd), dtype, device, generator)
+        self.w_down = weight((E, Fd, D), dtype, device, generator)
+
+
+def capacity_for(cfg, tokens: int) -> int:
+    cap = int(cfg.capacity_factor * tokens * cfg.experts_per_token / cfg.num_experts)
+    return max(cap, cfg.experts_per_token, 1)
+
+
+def route(x, router, k, capacity):
+    """Router: returns (weights (T,k) f32, expert ids (T,k) i32, ordinals
+    (T,k) i32, keep (T,k) bool, logits (T,E) f32)."""
+    from repro_torch.kernels.moe_route import moe_route
+
+    logits = x.float() @ router
+    return (*moe_route(logits, k, capacity), logits)
+
+
+def moe_ffn(x, p, cfg, capacity: int | None = None):
+    """x: (T, D) flat tokens → (y (T, D), aux_loss scalar)."""
+    T, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    C = capacity if capacity is not None else capacity_for(cfg, T)
+
+    w, idx, pos, keep, logits = route(x, p.router, K, C)
+
+    e_flat = idx.reshape(-1).long()  # (T·K,) expert of each assignment
+    t_flat = torch.arange(T, device=x.device).repeat_interleave(K)  # its token
+    w_flat = w.reshape(-1).to(x.dtype)
+    keep = keep.reshape(-1)
+    slot = e_flat * C + torch.where(keep, pos.reshape(-1).long(), 0)
+
+    # pack: (E·C, D) buffer; dropped assignments contribute zero
+    buf = torch.zeros((E * C, D), dtype=x.dtype, device=x.device)
+    buf.index_add_(0, slot, x[t_flat] * keep[:, None].to(x.dtype))
+    xe = buf.reshape(E, C, D)
+
+    g = F.silu(torch.einsum("ecd,edf->ecf", xe, p.w_gate))
+    u = torch.einsum("ecd,edf->ecf", xe, p.w_up)
+    ye = torch.einsum("ecf,efd->ecd", g * u, p.w_down).reshape(E * C, D)
+
+    # unpack: scatter-add weighted expert outputs back to tokens
+    contrib = ye[slot] * (w_flat * keep.to(w_flat.dtype))[:, None]
+    y = torch.zeros((T, D), dtype=x.dtype, device=x.device).index_add_(0, t_flat, contrib)
+
+    # Switch-style load balancing: E · Σ_e f_e · P_e
+    f = torch.bincount(e_flat, minlength=E).float() / (T * K)
+    P = torch.softmax(logits, dim=-1).mean(dim=0)
+    aux = E * torch.sum(f * P)
+    return y, aux
+
+
+def moe_ffn_bsd(x, p, cfg):
+    """(B, S, D) wrapper: flattens tokens, restores shape."""
+    B, S, D = x.shape
+    y, aux = moe_ffn(x.reshape(B * S, D), p, cfg)
+    return y.reshape(B, S, D), aux
+
+
+def moe_apply(x, p, cfg):
+    """(B, S, D) MoE: the flattened-token path (no expert parallelism on one
+    device, as the JAX function chooses on a mesh without a data axis)."""
+    return moe_ffn_bsd(x, p, cfg)

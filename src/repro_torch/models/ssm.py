@@ -1,0 +1,102 @@
+"""Attention-free SSM LM (mamba2-780m): embed → N × (norm + mamba2 mixer) →
+head (the port of ``repro.models.ssm``, serving surface).
+
+Decode state is O(1): per-layer (conv_tail, ssm_state) — no KV cache. The
+JAX package scans the stacked layers; here they are an ``nn.ModuleList``
+and the scan is a loop. Prefill and decode run under ``torch.no_grad()``:
+this is the serving path. Training comes later (ROADMAP A.8.1).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import mamba2
+from repro_torch.models.layers import Norm, apply_norm, embed_init, weight
+from repro_torch.models.transformer import _dtype, head_matrix
+
+
+class SSMLayer(nn.Module):
+    def __init__(self, cfg, device, generator=None):
+        super().__init__()
+        self.ln = Norm(cfg.d_model, cfg.norm_type, device)
+        self.mixer = mamba2.Mamba2Mixer(cfg, _dtype(cfg), device, generator)
+
+
+class SSMLM(nn.Module):
+    """``embed`` (V, D), ``layers[i].{ln, mixer}``, ``final_norm`` and, unless
+    tied, ``lm_head`` (D, V) — the JAX parameter tree with its layer axis
+    turned into a list. With a ``generator`` every weight is drawn on its
+    device in ``param_dtype``; without one the weights are left
+    uninitialised on ``device``."""
+
+    def __init__(self, cfg, device=None, generator=None):
+        super().__init__()
+        dt = _dtype(cfg)
+        if generator is not None:
+            device = generator.device
+        self.embed = weight((cfg.vocab_size, cfg.d_model), dt, device, generator, embed_init)
+        self.layers = nn.ModuleList(SSMLayer(cfg, device, generator)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = Norm(cfg.d_model, cfg.norm_type, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = weight((cfg.d_model, cfg.vocab_size), dt, device, generator,
+                                  embed_init)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def make_ssm_params(generator: torch.Generator, cfg) -> SSMLM:
+    """Random weights drawn from ``generator``, on its device."""
+    return SSMLM(cfg, generator=generator)
+
+
+def make_ssm_cache(cfg, batch, dtype=torch.bfloat16, device="cuda"):
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return {
+        "conv": torch.zeros((cfg.num_layers, batch, cfg.ssm_conv - 1, conv_dim), dtype=dtype,
+                            device=device),
+        "state": torch.zeros((cfg.num_layers, batch, cfg.ssm_heads, cfg.ssm_headdim,
+                              cfg.ssm_state), dtype=torch.float32, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+@torch.no_grad()
+def ssm_prefill(params, tokens, cfg):
+    """Returns (last logits, cache) — the cache is the O(1) recurrent state:
+    ``conv`` (L, B, width-1, conv_dim) in the activations' dtype, ``state``
+    (L, B, H, P, N) f32, ``pos`` (B,) int32."""
+    x = params.embed[tokens.long()]
+    tails, states = [], []
+    for lp in params.layers:
+        y, tail, st = mamba2.mamba_mixer(apply_norm(x, lp.ln, cfg.norm_type), lp.mixer, cfg)
+        x = x + y
+        tails.append(tail)
+        states.append(st)
+    h = apply_norm(x, params.final_norm, cfg.norm_type)
+    logits = h[:, -1] @ head_matrix(params, cfg)
+    B = tokens.shape[0]
+    cache = {"conv": torch.stack(tails), "state": torch.stack(states),
+             "pos": torch.full((B,), tokens.shape[1], dtype=torch.int32, device=x.device)}
+    return logits, cache
+
+
+@torch.no_grad()
+def ssm_decode_step(params, cache, tokens, cfg):
+    """One decode step. tokens: (B, 1). Returns (logits (B, V), a new cache
+    dict), as the JAX function returns one."""
+    x = params.embed[tokens.long()]  # (B, 1, D)
+    convs, states = [], []
+    for lp, conv_l, st_l in zip(params.layers, cache["conv"], cache["state"]):
+        y, conv_l, st_l = mamba2.mamba_mixer_decode(
+            apply_norm(x, lp.ln, cfg.norm_type), lp.mixer, cfg, conv_l, st_l)
+        x = x + y
+        convs.append(conv_l)
+        states.append(st_l)
+    h = apply_norm(x, params.final_norm, cfg.norm_type)
+    logits = h[:, -1] @ head_matrix(params, cfg)
+    return logits, {"conv": torch.stack(convs), "state": torch.stack(states),
+                    "pos": cache["pos"] + 1}

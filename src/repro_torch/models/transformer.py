@@ -1,12 +1,12 @@
-"""Decoder-only transformer LM, dense family (the port of the dense part of
-``repro.models.transformer``): GQA (+qk-norm), RoPE, sliding-window and
-local:global window patterns, logit soft-caps.
+"""Decoder-only transformer LM, dense or MoE (the port of
+``repro.models.transformer``, serving surface): GQA (+qk-norm), RoPE,
+sliding-window and local:global window patterns, logit soft-caps, MoE every
+layer (mixtral).
 
 The JAX package stacks layers on a leading axis and runs them with
 ``lax.scan``; here the layers are an ``nn.ModuleList`` and the scan is a
-loop over it. The MoE FFN and the VLM patch prefix come with their families
-(ROADMAP A.8). Prefill and decode run under ``torch.no_grad()``: this is
-the serving path.
+loop over it. The VLM patch prefix comes with its family (ROADMAP A.8).
+Prefill and decode run under ``torch.no_grad()``: this is the serving path.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import MLP, Norm, apply_norm, embed_init, mlp, weight
+from repro_torch.models.moe import MoE, moe_apply
 
 _TODO = "is not ported yet (ROADMAP A.8: the other families of the model zoo)"
 
@@ -27,12 +28,20 @@ def _dtype(cfg) -> torch.dtype:
 class Layer(nn.Module):
     def __init__(self, cfg, device, generator=None):
         super().__init__()
-        if cfg.is_moe:
-            raise NotImplementedError(f"the MoE FFN {_TODO}")
         self.ln1 = Norm(cfg.d_model, cfg.norm_type, device)
         self.attn = attn.Attention(cfg, _dtype(cfg), device, generator)
         self.ln2 = Norm(cfg.d_model, cfg.norm_type, device)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, _dtype(cfg), device, generator)
+        if cfg.is_moe:
+            self.ffn = MoE(cfg, _dtype(cfg), device, generator)
+        else:
+            self.ffn = MLP(cfg.d_model, cfg.d_ff, _dtype(cfg), device, generator)
+
+
+def _ffn(h, lp, cfg):
+    if cfg.is_moe:
+        m, _ = moe_apply(h, lp.ffn, cfg)
+        return m
+    return mlp(h, lp.ffn)
 
 
 class TransformerLM(nn.Module):
@@ -113,7 +122,7 @@ def lm_prefill(params, tokens, cfg, cache_len=None, patches=None):
                                    pos, window=window, static_window=static)
         x = x + a
         h = apply_norm(x, lp.ln2, cfg.norm_type)
-        x = x + mlp(h, lp.ffn)
+        x = x + _ffn(h, lp, cfg)
         ks[i, :, :S] = k
         vs[i, :, :S] = v
     h = apply_norm(x, params.final_norm, cfg.norm_type)
@@ -145,7 +154,7 @@ def lm_decode_step(params, cache, tokens, cfg):
                                         pos, cache["k"][i], cache["v"][i], window=window)
         x = x + a
         h = apply_norm(x, lp.ln2, cfg.norm_type)
-        x = x + mlp(h, lp.ffn)
+        x = x + _ffn(h, lp, cfg)
     h = apply_norm(x, params.final_norm, cfg.norm_type)
     logits = h[:, -1] @ head_matrix(params, cfg)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

@@ -1,13 +1,16 @@
 """Continuous-batching serve engine (the port of ``repro.serving.engine``).
 
-Fixed-slot design: the KV cache is a (slots, …) slab; new requests are
+Fixed-slot design: the cache is a (slots, …) slab (KV rows for the
+transformers, the O(1) recurrent state for the SSM); new requests are
 admitted into free slots via single-row prefill, every engine step runs ONE
 batched decode over all live slots, finished requests retire and free their
 slot. A request reaching its token budget retires (with a truncation flag
 when it has an ``eos_id`` it did not meet).
 
-The slab lives on the model's device and is updated in place: prefill rows
-are spliced into their slot, and each decode writes one row per slot.
+The slab lives on the model's device and is updated in place: prefill
+caches are spliced into their slot, and a transformer's decode writes one
+KV row per slot (the SSM's decode returns a new state, as in the JAX
+package).
 """
 from __future__ import annotations
 
@@ -121,19 +124,31 @@ class ServeEngine:
 
 
 def _splice(cache, cache1, slot: int, cache_len: int):
-    """Write a request cache (batch 1, length Lp) into slot ``slot`` of the
-    slab (batch S, length cache_len), in place: rows beyond Lp are zeroed
-    (the JAX package pads with zeros) and values are cast to the slab's
-    dtype (bf16 even for an f32 model). Returns the slab."""
+    """Write a request cache (batch 1) into slot ``slot`` of the slab (batch
+    S), in place, casting to the slab's dtype (bf16 even for an f32 model).
+    Returns the slab.
+
+    Per-layer leaves are stacked ``(L, B, …)``. A leaf whose dim 2 is the
+    slab's length (a KV cache: ``(L, B, cache_len, …)`` against the
+    request's ``(L, 1, Lp, …)``) takes the request's Lp rows and is zeroed
+    beyond them, as the JAX package pads with zeros. A state-like leaf (the
+    SSM's conv tail ``(L, B, width-1, ch)`` and state ``(L, B, H, P, N)``)
+    has the same shape in both and is copied whole into its slot, as the
+    JAX ``_splice`` copies it."""
     for name, slab in cache.items():
         single = cache1[name]
         if slab.ndim == 1:  # pos (B,)
             slab[slot] = single[0].to(slab.dtype)
-            continue
-        # per-layer stacked leaves: (L, B, cache_len, ...) vs (L, 1, Lp, ...)
-        Lp = single.shape[2]
-        if Lp > cache_len:
-            raise ValueError(f"prompt cache of {Lp} positions exceeds cache_len {cache_len}")
-        slab[:, slot, :Lp] = single[:, 0].to(slab.dtype)
-        slab[:, slot, Lp:] = 0
+        elif slab.shape[2] == cache_len and single.shape[2] != cache_len:
+            Lp = single.shape[2]
+            if Lp > cache_len:
+                raise ValueError(f"prompt cache of {Lp} positions exceeds cache_len "
+                                 f"{cache_len}")
+            slab[:, slot, :Lp] = single[:, 0].to(slab.dtype)
+            slab[:, slot, Lp:] = 0
+        elif slab.shape[2:] == single.shape[2:]:
+            slab[:, slot] = single[:, 0].to(slab.dtype)
+        else:
+            raise ValueError(f"cache leaf {name!r}: request {tuple(single.shape)} does not "
+                             f"fit the slab {tuple(slab.shape)}")
     return cache

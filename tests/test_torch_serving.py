@@ -17,13 +17,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as j_config  # noqa: E402
 from repro.models import build_model as j_build  # noqa: E402
 from repro.serving.engine import Request as JRequest  # noqa: E402
 from repro.serving.engine import ServeEngine as JServeEngine  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.core import ICluster, IJob, IProperties, IWorker  # noqa: E402
 from repro_torch.interop import params_from_reference  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
@@ -123,11 +123,15 @@ def test_engine_eos_at_prefill_frees_slot():
 
 
 def test_engine_with_ssm_family():
-    """The SSM family is not ported yet: building it names ROADMAP A.8."""
-    cfg = ArchConfig(**dataclasses.asdict(
-        j_config("mamba2-780m").reduced().with_overrides(param_dtype="float32")))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        build_model(cfg)
+    """Continuous batching over an O(1)-state SSM: the reduced mamba2-780m
+    (f32, as tests/test_serving.py serves it) gives the JAX engine's greedy
+    tokens, each request's equal to its own greedy decode."""
+    jb, jp, tb, tp, cfg = _carried("mamba2-780m", param_dtype="float32")
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, cfg.vocab_size, 6, dtype=np.int32), 5) for _ in range(3)]
+    tdone = _engines_agree(jb, jp, tb, tp, reqs, slots=2)
+    for i, (p, n) in enumerate(reqs):
+        assert tdone[i] == _greedy_reference(tb, tp, p, n)
 
 
 def test_splice_pads_with_zeros_and_casts_to_the_slab():
@@ -144,6 +148,36 @@ def test_splice_pads_with_zeros_and_casts_to_the_slab():
     assert slab["pos"].tolist() == [0, 5, 0]
     with pytest.raises(ValueError, match="cache_len"):
         _splice(slab, {"k": torch.zeros((2, 1, 9, 1, 2)), "pos": single["pos"]}, 0, 8)
+
+
+def test_splice_copies_state_leaves_whole_into_their_slot():
+    """An SSM cache's state (L, B, H, P, N) with H beyond cache_len, and its
+    conv tail, are copied whole into the slot, as the JAX ``_splice`` does;
+    the other slots stay as they were."""
+    from repro.serving.engine import _splice as j_splice
+    from repro_torch.serving.engine import _splice
+
+    cfg = get_config("mamba2-780m").reduced().with_overrides(ssm_headdim=4)
+    assert cfg.ssm_heads == 32 > 8  # H exceeds the slab's cache_len
+    bundle = build_model(cfg)
+    slab = bundle.make_cache(3, 8, device="cpu")
+    slab["state"].fill_(7.0)
+    rng = np.random.default_rng(0)
+    single = {"conv": torch.from_numpy(rng.standard_normal((4, 1, 3, slab["conv"].shape[-1])))
+              .float(),
+              "state": torch.from_numpy(rng.standard_normal((4, 1, 32, 4, 16))).float(),
+              "pos": torch.tensor([6], dtype=torch.int32)}
+    want = j_splice({k: jnp.asarray(v.float().numpy(), str(v.dtype).split(".")[1])
+                     for k, v in slab.items()},
+                    {k: jnp.asarray(v.numpy()) for k, v in single.items()}, 1, 8)
+    out = _splice(slab, single, 1, 8)
+    assert out is slab and slab["conv"].dtype == torch.bfloat16
+    assert torch.equal(slab["state"][:, 1], single["state"][:, 0])
+    assert (slab["state"][:, 0] == 7).all() and (slab["state"][:, 2] == 7).all()
+    assert torch.equal(slab["conv"][:, 1], single["conv"][:, 0].to(torch.bfloat16))
+    assert slab["pos"].tolist() == [0, 6, 0]
+    for k in slab:
+        np.testing.assert_array_equal(slab[k].float().numpy(), np.asarray(want[k], np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -170,23 +204,28 @@ class _Recorder:
         return logits, cache
 
 
-def test_port_engine_equals_the_jax_engine():
-    jcfg = j_config("ignis-tiny")
-    jb = j_build(jcfg)
+def _carried(name, reduced=True, **over):
+    """(JAX bundle, JAX params, port bundle, port params, port config) of one
+    architecture, the JAX weights carried across."""
+    jcfg, cfg = j_config(name), get_config(name)
+    if reduced:
+        jcfg, cfg = jcfg.reduced(), cfg.reduced()
+    jcfg, cfg = jcfg.with_overrides(**over), cfg.with_overrides(**over)
+    jb, tb = j_build(jcfg), build_model(cfg)
     jp = jb.init(jax.random.PRNGKey(0))
-    cfg = get_config("ignis-tiny")
-    tb = build_model(cfg)
-    tp = params_from_reference(jax.tree.map(np.asarray, jp), cfg)
-    rng = np.random.default_rng(11)
-    reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(3, 12)), dtype=np.int32),
-             int(rng.integers(1, 7))) for _ in range(6)]
+    return jb, jp, tb, params_from_reference(jax.tree.map(np.asarray, jp), cfg), cfg
 
-    je = JServeEngine(jb, jp, slots=3, cache_len=32)
+
+def _engines_agree(jb, jp, tb, tp, reqs, slots=3, cache_len=32, tol=LOGIT_TOL):
+    """The same requests through both packages' engines: equal tokens, and
+    the logits of every row the engines used within ``tol`` with a top-2
+    margin above twice that. Returns the port's tokens by request id."""
+    je = JServeEngine(jb, jp, slots=slots, cache_len=cache_len)
     jrec = _Recorder(jb.prefill, je, lambda x: np.asarray(x, np.float32))
     je.bundle = dataclasses.replace(jb, prefill=jrec.prefill)
     jrec_d = _Recorder(je._decode, je, lambda x: np.asarray(x, np.float32))
     je._decode = jrec_d.decode
-    te = ServeEngine(tb, tp, slots=3, cache_len=32)
+    te = ServeEngine(tb, tp, slots=slots, cache_len=cache_len)
     trec = _Recorder(tb.prefill, te, lambda x: x.float().numpy())
     trec_d = _Recorder(tb.decode_step, te, lambda x: x.float().numpy())
     te.bundle = dataclasses.replace(tb, prefill=trec.prefill, decode_step=trec_d.decode)
@@ -195,14 +234,38 @@ def test_port_engine_equals_the_jax_engine():
         te.submit(Request(i, p, max_new_tokens=n))
     jdone = {r.rid: r.tokens for r in je.run_to_completion()}
     tdone = {r.rid: r.tokens for r in te.run_to_completion()}
-    assert tdone == jdone and sorted(tdone) == list(range(6))
+    assert tdone == jdone and sorted(tdone) == list(range(len(reqs)))
     np.testing.assert_array_equal(np.asarray(te.cache["pos"]), np.asarray(je.cache["pos"]))
     for jrows, trows in ((jrec.rows, trec.rows), (jrec_d.rows, trec_d.rows)):
         assert len(jrows) == len(trows) > 0
         for j, t in zip(jrows, trows):
-            assert np.abs(j - t).max() <= LOGIT_TOL
+            assert np.abs(j - t).max() <= tol
             top2 = np.sort(t)[-2:]
-            assert top2[1] - top2[0] > 2 * LOGIT_TOL
+            assert top2[1] - top2[0] > 2 * tol
+    return tdone
+
+
+def _requests(seed, vocab, n=6):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, int(rng.integers(3, 12)), dtype=np.int32),
+             int(rng.integers(1, 7))) for _ in range(n)]
+
+
+def test_port_engine_equals_the_jax_engine():
+    jb, jp, tb, tp, cfg = _carried("ignis-tiny", reduced=False)
+    _engines_agree(jb, jp, tb, tp, _requests(11, cfg.vocab_size))
+
+
+def test_port_engine_equals_the_jax_engine_on_the_moe_family():
+    """The reduced mixtral-8x7b (f32; a 16-token sliding window, 4 experts
+    top-2): prompts and decode ticks routed through the MoE router. Held to
+    2e-3: a prefill key within the f32 noise (4e-7 here) of a bf16 rounding
+    tie lands one ulp (2^-8) apart in the two packages' bf16 slabs, which
+    moved two of the 8 decode rows by 1.3e-3 and 6.6e-4 (the other six
+    agree exactly). The small reduced vocabulary leaves most request seeds
+    a top-2 margin under twice that; this one's margins are wider."""
+    jb, jp, tb, tp, cfg = _carried("mixtral-8x7b", param_dtype="float32")
+    _engines_agree(jb, jp, tb, tp, _requests(16, cfg.vocab_size), tol=2e-3)
 
 
 # ---------------------------------------------------------------------------
@@ -322,3 +385,11 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     assert "[serve] 3 requests, 12 tokens" in capsys.readouterr().out
     with pytest.raises(KeyError, match="ROADMAP A.8"):
         serve_cli.main(["--arch", "yi-9b", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "mixtral-8x7b"])
+def test_serve_cli_runs_the_ssm_and_moe_families_on_the_cpu(arch, capsys):
+    done = serve_cli.main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "3",
+                           "--max-new", "4"])
+    assert len(done) == 3 and all(len(r.tokens) == 4 for r in done)
+    assert "[serve] 3 requests, 12 tokens" in capsys.readouterr().out
