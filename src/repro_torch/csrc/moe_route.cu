@@ -6,7 +6,10 @@
 // top k (k <= 2) experts by probability, the lowest index winning a tie;
 // their weights renormalised as w / max(sum w, 1e-9); and each assignment's
 // ordinal within its expert in token-major, slot-minor order, with
-// keep = ordinal < capacity.
+// keep = ordinal < capacity. A NaN probability counts as the largest, the
+// first one winning, as torch.argmax and jax.lax.top_k take it: a row with
+// a NaN or an infinite logit, whose probabilities are all NaN, routes to
+// experts 0 and 1 (the Pallas kernel gives 0 twice there).
 //
 // What bounds it on this card: launch latency. At the Mixtral prefill
 // (T = 2048, E = 8, k = 2) it reads 64 KB and writes 52 KB, some 0.035 us
@@ -32,6 +35,11 @@ constexpr int NW = NT / 32;   // warps
 constexpr int MAX_E = 64;
 constexpr unsigned FULL = 0xffffffffu;
 
+// p ranks above v: larger, or NaN where v is not
+__device__ __forceinline__ bool above(float p, float v) {
+  return p > v || (isnan(p) && !isnan(v));
+}
+
 __global__ void __launch_bounds__(NT)
 moe_route_kernel(const float* __restrict__ logits, float* __restrict__ w,
                  int* __restrict__ idx, int* __restrict__ pos, bool* __restrict__ keep, int T,
@@ -54,15 +62,16 @@ moe_route_kernel(const float* __restrict__ logits, float* __restrict__ w,
       for (int e = 0; e < E; ++e) m = fmaxf(m, row[e]);
       float s = 0.f;
       for (int e = 0; e < E; ++e) s += expf(row[e] - m);
-      // one pass in index order; strict comparisons keep the lower index
+      // one pass in index order; strict comparisons keep the lower index,
+      // so i0 and (for E >= 2) i1 are always set
       for (int e = 0; e < E; ++e) {
         const float p = expf(row[e] - m) / s;
-        if (p > v0) {
+        if (above(p, v0)) {
           v1 = v0;
           i1 = i0;
           v0 = p;
           i0 = e;
-        } else if (p > v1) {
+        } else if (above(p, v1)) {
           v1 = p;
           i1 = e;
         }

@@ -4,10 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, under ``build/kernels/cuda/`` (listed in
 .gitignore), and loaded with ``ctypes``. The build happens at the first
 launch, once per process under a lock; the library's file name carries a
-hash of the sources and flags, so an edited kernel is rebuilt. Each
-source has its own lock, so ``load_all`` runs one ``nvcc`` per source at
-once. A failed build raises: nothing falls back. Only a CUDA launch (or
-``load_all``) builds, so importing the port needs no ``nvcc``.
+hash of the sources and flags, so an edited kernel is rebuilt. A failed
+build raises: nothing falls back. Only a CUDA launch calls ``load``, so
+importing the port needs no ``nvcc``.
 
 Every library exports its entry points, which return a CUDA error code (0
 on success), and ``<name>_error_string``; ``entry`` declares an entry
@@ -23,7 +22,6 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from concurrent.futures import ThreadPoolExecutor
 
 from repro_torch.kernels import BUILD_DIR
 
@@ -32,7 +30,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
-_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 #: ``{source name: nvcc's output}`` of the builds this process made
 #: (``-Xptxas=-v``: registers, shared memory and spills of each kernel)
@@ -58,8 +55,6 @@ def library_path(name: str) -> pathlib.Path:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     with _lock:
-        lock = _locks.setdefault(name, threading.Lock())
-    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
@@ -76,13 +71,6 @@ def load(name: str) -> ctypes.CDLL:
             os.replace(tmp, out)
         lib = _libs[name] = ctypes.CDLL(str(out))
         return lib
-
-
-def load_all(names) -> dict[str, ctypes.CDLL]:
-    """Build (one ``nvcc`` per source, all at once) and load several."""
-    names = list(names)
-    with ThreadPoolExecutor(max(len(names), 1)) as pool:
-        return dict(zip(names, pool.map(load, names)))
 
 
 def entry(name: str, symbol: str, argtypes: list):

@@ -34,8 +34,9 @@ def moe_route_ref(logits: torch.Tensor, k: int, capacity: int):
     The softmax is ``exp(l - max) / sum`` with the sum taken column by
     column, as the kernel takes it. Top-k is an iterative argmax over the
     probabilities (``torch.argmax`` returns the first maximum, so the lower
-    expert index wins a tie, as with ``jax.lax.top_k``); ``torch.topk``
-    does not promise that order."""
+    expert index wins a tie, as with ``jax.lax.top_k``, and it ranks NaN
+    highest, so a row of NaN probabilities routes to experts 0 and 1);
+    ``torch.topk`` does not promise that order."""
     T, E = logits.shape
     lf = logits.float()
     e = torch.exp(lf - lf.max(dim=-1, keepdim=True).values)

@@ -119,6 +119,26 @@ def test_moe_route_padding_claims_no_ordinal_before_real_tokens():
         torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
+def test_moe_route_routes_non_finite_rows_as_the_oracle_does():
+    """A row with a NaN, an all -inf row and a row with +inf have only NaN
+    probabilities; the plain version (which the CUDA kernel must equal)
+    ranks NaN highest, the first one winning, as ``jax.lax.top_k`` in the
+    JAX oracle does: experts 0 and 1, with NaN weights, and ordinals in
+    range. (The Pallas kernel picks expert 0 twice there.)"""
+    x = _logits(4, 9, 8)
+    x[1, 3], x[4], x[7, 7] = np.nan, -np.inf, np.inf
+    got = moe_route(torch.from_numpy(x), 2, 4)
+    want = j_moe_route_ref(jnp.asarray(x), 2, 4)
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    bad = [1, 4, 7]
+    assert got[1][bad].tolist() == [[0, 1]] * 3
+    w = got[0].numpy()
+    assert np.isnan(w[bad]).all() and not np.isnan(np.delete(w, bad, 0)).any()
+    np.testing.assert_allclose(np.delete(w, bad, 0),
+                               np.delete(np.asarray(want[0]), bad, 0), atol=W_ATOL, rtol=0)
+
+
 def test_moe_route_cpu_calls_take_the_plain_version_and_count_no_launch():
     kernels.reset_launches()
     moe_route(torch.from_numpy(_logits(1, 10, 4)), 2, 3)

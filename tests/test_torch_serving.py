@@ -6,7 +6,7 @@ the CLI on the CPU.
 
 Engine parity: logits of the two engines agree within LOGIT_TOL (f32 model
 with the bf16 KV slab of both packages; they differ in summation order, under
-1e-6 at these sizes); the top-2 margin of every token the engines pick
+1e-6 at these sizes), and a token is held equal where its row's top-2 margin
 exceeds twice that, so equal tokens are not a tie's luck.
 """
 import dataclasses
@@ -129,7 +129,8 @@ def test_engine_with_ssm_family():
     jb, jp, tb, tp, cfg = _carried("mamba2-780m", param_dtype="float32")
     rng = np.random.default_rng(1)
     reqs = [(rng.integers(0, cfg.vocab_size, 6, dtype=np.int32), 5) for _ in range(3)]
-    tdone = _engines_agree(jb, jp, tb, tp, reqs, slots=2)
+    tdone, held, total = _engines_agree(jb, jp, tb, tp, reqs, slots=2)
+    assert held == total  # every row clears its margin: the tokens are all held
     for i, (p, n) in enumerate(reqs):
         assert tdone[i] == _greedy_reference(tb, tp, p, n)
 
@@ -186,22 +187,30 @@ def test_splice_copies_state_leaves_whole_into_their_slot():
 
 
 class _Recorder:
-    """Wraps a prefill/decode function: keeps the logits of the rows whose
-    token the engine uses (the prefill row, the live slots of a tick)."""
+    """Wraps an engine's prefill and decode functions: keeps, by request id,
+    the logits of each row whose token the engine uses (the prefill row,
+    then the request's slot in each tick). Prefills run in submission order,
+    so the n-th prefill is request n."""
 
-    def __init__(self, fn, engine, to_np):
-        self.fn, self.engine, self.to_np, self.rows = fn, engine, to_np, []
+    def __init__(self, engine, to_np):
+        self.engine, self.to_np, self.rows = engine, to_np, {}
 
-    def prefill(self, params, **kw):
-        logits, cache = self.fn(params, **kw)
-        self.rows.append(self.to_np(logits)[0])
-        return logits, cache
+    def wrap_prefill(self, fn):
+        def prefill(params, **kw):
+            logits, cache = fn(params, **kw)
+            self.rows[len(self.rows)] = [self.to_np(logits)[0]]
+            return logits, cache
+        return prefill
 
-    def decode(self, *a):
-        logits, cache = self.fn(*a)
-        arr = self.to_np(logits)
-        self.rows.extend(arr[s] for s, r in enumerate(self.engine.live) if r is not None)
-        return logits, cache
+    def wrap_decode(self, fn):
+        def decode(*a):
+            logits, cache = fn(*a)
+            arr = self.to_np(logits)
+            for s, r in enumerate(self.engine.live):
+                if r is not None:
+                    self.rows[r.rid].append(arr[s])
+            return logits, cache
+        return decode
 
 
 def _carried(name, reduced=True, **over):
@@ -217,32 +226,42 @@ def _carried(name, reduced=True, **over):
 
 
 def _engines_agree(jb, jp, tb, tp, reqs, slots=3, cache_len=32, tol=LOGIT_TOL):
-    """The same requests through both packages' engines: equal tokens, and
-    the logits of every row the engines used within ``tol`` with a top-2
-    margin above twice that. Returns the port's tokens by request id."""
+    """The same requests through both packages' engines. Every row the
+    engines used agrees within ``tol``, request by request, up to the first
+    near-tie (a top-2 margin of at most twice ``tol``) that the two packages
+    broke differently: the rest of that request follows another token. A
+    row whose margin clears twice ``tol`` must give both engines its token.
+    Returns (the port's tokens by request id, rows whose token was held,
+    rows in all)."""
     je = JServeEngine(jb, jp, slots=slots, cache_len=cache_len)
-    jrec = _Recorder(jb.prefill, je, lambda x: np.asarray(x, np.float32))
-    je.bundle = dataclasses.replace(jb, prefill=jrec.prefill)
-    jrec_d = _Recorder(je._decode, je, lambda x: np.asarray(x, np.float32))
-    je._decode = jrec_d.decode
+    jrec = _Recorder(je, lambda x: np.asarray(x, np.float32))
+    je.bundle = dataclasses.replace(jb, prefill=jrec.wrap_prefill(jb.prefill))
+    je._decode = jrec.wrap_decode(je._decode)
     te = ServeEngine(tb, tp, slots=slots, cache_len=cache_len)
-    trec = _Recorder(tb.prefill, te, lambda x: x.float().numpy())
-    trec_d = _Recorder(tb.decode_step, te, lambda x: x.float().numpy())
-    te.bundle = dataclasses.replace(tb, prefill=trec.prefill, decode_step=trec_d.decode)
+    trec = _Recorder(te, lambda x: x.float().numpy())
+    te.bundle = dataclasses.replace(tb, prefill=trec.wrap_prefill(tb.prefill),
+                                    decode_step=trec.wrap_decode(tb.decode_step))
     for i, (p, n) in enumerate(reqs):
         je.submit(JRequest(i, p, max_new_tokens=n))
         te.submit(Request(i, p, max_new_tokens=n))
     jdone = {r.rid: r.tokens for r in je.run_to_completion()}
     tdone = {r.rid: r.tokens for r in te.run_to_completion()}
-    assert tdone == jdone and sorted(tdone) == list(range(len(reqs)))
+    assert sorted(tdone) == sorted(jdone) == list(range(len(reqs)))
     np.testing.assert_array_equal(np.asarray(te.cache["pos"]), np.asarray(je.cache["pos"]))
-    for jrows, trows in ((jrec.rows, trec.rows), (jrec_d.rows, trec_d.rows)):
-        assert len(jrows) == len(trows) > 0
-        for j, t in zip(jrows, trows):
-            assert np.abs(j - t).max() <= tol
+    held = total = 0
+    for rid, (_p, n) in enumerate(reqs):
+        jrows, trows = jrec.rows[rid], trec.rows[rid]
+        assert len(jrows) == len(trows) == len(tdone[rid]) == len(jdone[rid]) == n
+        total += n
+        for step, (j, t) in enumerate(zip(jrows, trows)):
+            assert np.abs(j - t).max() <= tol, (rid, step)
             top2 = np.sort(t)[-2:]
-            assert top2[1] - top2[0] > 2 * tol
-    return tdone
+            if top2[1] - top2[0] > 2 * tol:
+                assert tdone[rid][step] == jdone[rid][step], (rid, step)
+                held += 1
+            elif tdone[rid][step] != jdone[rid][step]:
+                break
+    return tdone, held, total
 
 
 def _requests(seed, vocab, n=6):
@@ -253,19 +272,24 @@ def _requests(seed, vocab, n=6):
 
 def test_port_engine_equals_the_jax_engine():
     jb, jp, tb, tp, cfg = _carried("ignis-tiny", reduced=False)
-    _engines_agree(jb, jp, tb, tp, _requests(11, cfg.vocab_size))
+    _, held, total = _engines_agree(jb, jp, tb, tp, _requests(11, cfg.vocab_size))
+    assert held == total
 
 
 def test_port_engine_equals_the_jax_engine_on_the_moe_family():
     """The reduced mixtral-8x7b (f32; a 16-token sliding window, 4 experts
-    top-2): prompts and decode ticks routed through the MoE router. Held to
-    2e-3: a prefill key within the f32 noise (4e-7 here) of a bf16 rounding
-    tie lands one ulp (2^-8) apart in the two packages' bf16 slabs, which
-    moved two of the 8 decode rows by 1.3e-3 and 6.6e-4 (the other six
-    agree exactly). The small reduced vocabulary leaves most request seeds
-    a top-2 margin under twice that; this one's margins are wider."""
+    top-2): prompts and decode ticks routed through the MoE router, over
+    four request seeds. Held to 2e-3: a prefill key within the f32 noise
+    (4e-7 here) of a bf16 rounding tie lands one ulp (2^-8) apart in the two
+    packages' bf16 slabs, which moves a decode row by up to 1.3e-3. The
+    small reduced vocabulary gives some rows a top-2 margin under twice
+    that; their tokens are not held, and at least three rows in four must
+    clear it (at least 14 of 17 over the request seeds 0-19)."""
     jb, jp, tb, tp, cfg = _carried("mixtral-8x7b", param_dtype="float32")
-    _engines_agree(jb, jp, tb, tp, _requests(16, cfg.vocab_size), tol=2e-3)
+    for seed in range(4):
+        _, held, total = _engines_agree(jb, jp, tb, tp, _requests(seed, cfg.vocab_size),
+                                        tol=2e-3)
+        assert held >= 0.75 * total, (seed, held, total)
 
 
 # ---------------------------------------------------------------------------

@@ -294,3 +294,33 @@ def test_port_ssm_init_draws_on_the_generators_device():
     mixer = a.layers[0].mixer
     assert mixer.conv_w.abs().max() <= 2.0 / cfg.ssm_conv**0.5 + 1e-2  # fan-in = width
     assert torch.equal(mixer.Dskip, torch.ones(cfg.ssm_heads))
+
+
+@pytest.mark.parametrize("dtype,lo,hi", [("float32", 0.0, 1e-4), ("bfloat16", 1e-2, 1.0)])
+def test_full_depth_random_stack_amplifies_bf16_roundings_only(dtype, lo, hi, monkeypatch):
+    """The measurement behind chip_smoke.py's Mamba checks: mamba2-780m at
+    its full depth (48 layers) and reduced width, with random weights. A
+    relative change of 1e-6 in every SSD output (computed in f32, rounded
+    once to the model's dtype) moves the last logits by 1.1e-5 relative L2
+    in f32, but by 6.5e-2 in bf16, where it flips roundings that the 48
+    layers compound. So a comparison of logits holds an SSD kernel
+    tightly in f32 only; in bf16 the kernel is held layer by layer."""
+    cfg = t_config("mamba2-780m").reduced().with_overrides(num_layers=48, param_dtype=dtype)
+    bundle = t_build(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256)).astype(np.int32))
+    g = torch.Generator().manual_seed(2)
+
+    def f32_ssd(x, dt, A_log, Bm, Cm, chunk, eps=0.0):
+        y, st = t_mamba2.ssd_chunked(x.float(), dt, A_log, Bm.float(), Cm.float(), chunk)
+        y = y * (1 + eps * torch.randn(y.shape, generator=g))
+        return y.to(x.dtype), st
+
+    pkg = importlib.import_module("repro_torch.kernels.ssd_scan")
+    monkeypatch.setattr(pkg, "ssd_scan", f32_ssd)
+    base = bundle.prefill(params, tokens=toks)[0].float()
+    monkeypatch.setattr(pkg, "ssd_scan", lambda *a: f32_ssd(*a, eps=1e-6))
+    moved = bundle.prefill(params, tokens=toks)[0].float()
+    rel = float((moved - base).norm() / base.norm())
+    assert lo < rel < hi, rel
