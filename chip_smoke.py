@@ -18,13 +18,19 @@ non-zero):
              port's loader finds them), all started at once, while each
              Triton kernel compiles at its first launch
              (cached under ``build/kernels/triton`` unless TRITON_CACHE_DIR
-             says otherwise); then each CUDA kernel's first launch and
-             ptxas' register and spill lines;
+             says otherwise); then each CUDA kernel's first launch (flash
+             on both routes), ptxas' register and spill lines, and each
+             kernel's count of tensor-core instructions (``HGMMA``: wgmma,
+             ``HMMA``: mma.sync) in its SASS where the toolkit has
+             ``cuobjdump``;
 2. edge    — every kernel against its plain version at edge shapes; the
              flash kernel over dtypes, GQA groups, head dims, masks and
-             ragged lengths; the SSD scan over dtypes, groups, chunks,
-             widths, batches and ragged lengths; the router over expert
-             counts, k, token counts, capacities, tied and non-finite logits;
+             ragged lengths (in bf16 also lengths of several of its tiles,
+             up to 2048), each case counted under the route the wrapper
+             names for it; the SSD scan over dtypes, groups, chunks,
+             widths, batches, 2, 3 and 8 chunks and ragged lengths; the
+             router over expert counts, k, token counts, capacities, tied
+             and non-finite logits;
 3. hybrid  — the hybrid job, twice with ``ignis.kernels=auto`` (launch
              counters reset before each run) and once with ``off``: branch A
              ``map → reduceByKey(add)`` and ``reduceByKey(max)`` (PSRS sort
@@ -54,8 +60,9 @@ non-zero):
              layers (flash with its 4096 window; every prefill's and decode
              step's FFNs through the router). Checks: every ticket resolves
              with 32 tokens, each kernel's launches equal layers x prefills
-             (the router: layers x (prefills + decode steps)), serve tasks in
-             the job, finite logits, and the kernels' prefill logits against
+             (the router: layers x (prefills + decode steps)), every flash
+             and SSD launch on the tensor-core route (``PATH_VARIANT``),
+             serve tasks in the job, finite logits, and the kernels' prefill logits against
              the plain versions' on the same weights (Mamba's in an f32 copy
              of the model, after its SSD held layer by layer in bf16).
              Reports prefill ms per
@@ -63,7 +70,8 @@ non-zero):
              memory and, for a tick and the longest prefill, the host's
              enqueue time against the device's busy time; then the path's
              new kernel at its largest shape, timed beside its bound, its
-             plain version and, for flash, torch's SDPA.
+             plain version, its earlier design's time (``EARLIER_MS``) and,
+             for flash, torch's SDPA.
 
 The last two lines are the ``kernels`` JSON object (with the card's name and
 power limit just before it) and ``{"ok": true, "device": {...}}``.
@@ -587,6 +595,12 @@ SSM_F32_REL_L2 = 1e-3
 #: the logits differ only by summation order
 MOE_REL_L2 = 1e-2
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_NEW = 4, 4096, 8, 32
+#: the route every launch of a serve path must take (``launches_by_variant``):
+#: bf16 flash on the tensor cores, the SSD scan's products on the tensor cores
+PATH_VARIANT = {"flash_attention": "wgmma", "ssd_scan": "mma"}
+#: each redesigned kernel's time at its row's shape in its earlier f32-FMA
+#: design (this script on an NVIDIA H100 80GB HBM3 at a 700 W power limit)
+EARLIER_MS = {"flash_attention": 1.6673, "ssd_scan": 1.6210}
 #: Mixtral-8x7B's layers served: all 32 are 46.7e9 parameters, 93.4 GB in
 #: bf16, above the card's 80 GB; 24 are 35.1e9 (65.6 GiB)
 MIXTRAL_LAYERS = 24
@@ -603,27 +617,47 @@ def flash_flop(q_shape, k_shape, causal, q_offset):
     return 4 * hd * B * H * rows
 
 
+#: flash edge lengths: ragged against both routes' tiles, for both dtypes
+FLASH_LENS = (1, 127, 129, 1000)
+#: and, in bf16, lengths that span several of the wgmma route's 128-row and
+#: 64-key tiles, the serve path's longest prompt among them
+FLASH_LONG_LENS = (255, 1819, 2048)
+
+
 def flash_edge_checks():
     """The flash kernel against its plain version on the card: bf16 and
     f32, G in {1, 5}, hd in {64, 128, 256}, causal on and off, window in
-    {None, 16}, softcap in {0, 50}, ragged Sq, Skv in {1, 127, 129, 1000}
-    with q_offset = Skv - Sq where Sq <= Skv (0 otherwise; a window then
-    leaves rows with no live column, which the plain version and the kernel
-    define differently, so that pair is not run). No output may be NaN."""
+    {None, 16}, softcap in {0, 50}, ragged Sq, Skv in ``FLASH_LENS`` (in
+    bf16 also ``FLASH_LONG_LENS``) with q_offset = Skv - Sq where Sq <= Skv
+    (0 otherwise; a window then leaves rows with no live column, which the
+    plain version and the kernel define differently, so that pair is not
+    run). No output may be NaN, and each call must count one launch of the
+    route ``variant`` gives its dtype and head dim, the rule the C entry
+    point applies too."""
+    import ctypes
     import itertools
 
     import torch
 
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        _DTYPES, HEAD_DIMS, flash_attention_fwd, variant)
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
+    c_variant = _cuda.entry("flash_attention", "flash_attention_variant",
+                            [ctypes.c_int, ctypes.c_int])
+    for dt, hd in itertools.product(_DTYPES, HEAD_DIMS):
+        c_says = ("fma", "wgmma")[c_variant(_DTYPES[dt], hd)]
+        check(c_says == variant(dt, hd), f"flash {dt} hd={hd}: the C entry point takes "
+              f"{c_says}, the wrapper counts {variant(dt, hd)}")
     g = torch.Generator(device="cuda").manual_seed(2)
-    lens = (1, 127, 129, 1000)
-    n, worst = 0, {}
+    n, worst, by_variant = 0, {}, {}
     for dt, G, hd in itertools.product((torch.bfloat16, torch.float32), (1, 5),
                                        (64, 128, 256)):
         K, B = 2, 2
         atol, rtol = FLASH_TOL[str(dt)]
+        lens = FLASH_LENS + (FLASH_LONG_LENS if dt == torch.bfloat16 else ())
+        route = variant(dt, hd)
         for Sq, Skv in itertools.product(lens, lens):
             def rnd(*shape):
                 return torch.randn(shape, generator=g, device="cuda").to(dt)
@@ -636,10 +670,14 @@ def flash_edge_checks():
                 if window is not None and Sq > Skv:
                     continue
                 kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+                before = flash_attention_fwd.launches_by_variant.get(route, 0)
                 got = flash_attention_fwd(q, k, v, **kw)
                 ref = attention_ref(q, k, v, **kw)
                 what = (f"flash {dt} G={G} hd={hd} Sq={Sq} Skv={Skv} causal={causal} "
                         f"window={window} softcap={cap}")
+                check(flash_attention_fwd.launches_by_variant.get(route, 0) == before + 1,
+                      f"{what}: not counted as a launch of the {route} route")
+                by_variant[route] = by_variant.get(route, 0) + 1
                 check(not torch.isnan(got).any(), f"{what}: NaN in the output")
                 check(got.dtype == ref.dtype and got.shape == ref.shape, f"{what}: shape")
                 check(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol),
@@ -650,7 +688,8 @@ def flash_edge_checks():
     torch.cuda.synchronize()
     log(f"edge: flash_attention — {n} cases (bf16/f32 x G {{1, 5}} x hd {{64, 128, "
         f"256}} x causal x window {{None, 16}} x softcap {{0, 50}} x Sq, Skv in "
-        f"{lens}): OK; max abs err {worst}")
+        f"{FLASH_LENS}, in bf16 also {FLASH_LONG_LENS}): OK; max abs err {worst}; cases by "
+        f"route {by_variant}")
 
 
 SSD_TOL = {  # (atol, rtol) of the SSD kernel against ssd_chunked in f32
@@ -686,10 +725,12 @@ def _ssd_inputs(g, B, S, H, P, G, N, dtype):
 def ssd_edge_checks():
     """The SSD kernel against ``ssd_chunked`` on the card: f32 and bf16, G in
     {1, 2}, chunk in {16, 64, 256}, P in {16, 64}, N in {16, 128}, B in {1,
-    2}; S two chunks (the kernel directly) and two chunks and 7 (through the
-    wrapper, which pads). bf16 is held to the plain version on the same
-    values in f32, and to the bf16 plain version in relative L2. No output
-    may be NaN."""
+    2}; S two, three and eight chunks (the kernel directly: the state passed
+    across 1, 2 and 7 chunk boundaries, 8 chunks of 256 as on the Mamba
+    path) and two chunks and 7 (through the wrapper, which pads). bf16 is
+    held to the plain version on the same values in f32, and to the bf16
+    plain version in relative L2. No output may be NaN, and each call counts
+    one launch of the ``mma`` route."""
     import itertools
 
     import torch
@@ -704,11 +745,15 @@ def ssd_edge_checks():
                                                 (16, 64, 256), (16, 64), (16, 128), (1, 2)):
         H = 4
         atol, rtol = SSD_TOL[str(dt_)]
-        for S, fn in ((2 * q, ssd_scan_fwd), (2 * q + 7, ssd_scan)):
+        for S, fn in ((2 * q, ssd_scan_fwd), (3 * q, ssd_scan_fwd), (8 * q, ssd_scan_fwd),
+                      (2 * q + 7, ssd_scan)):
             x, dt, A_log, Bm, Cm = _ssd_inputs(g, B, S, H, P, G, N, dt_)
+            before = ssd_scan_fwd.launches_by_variant.get("mma", 0)
             y, st = fn(x, dt, A_log, Bm, Cm, q)
             yr, sr = ssd_chunked(x.float(), dt, A_log, Bm.float(), Cm.float(), q)
             what = f"ssd_scan {dt_} B={B} S={S} H={H} P={P} G={G} N={N} chunk={q}"
+            if ssd_scan_fwd.launches_by_variant.get("mma", 0) != before + 1:
+                bad.append(f"{what}: not counted as one launch of the mma route")
             ok = (y.dtype == dt_ and tuple(y.shape) == (B, S, H, P)
                   and tuple(st.shape) == (B, H, P, N) and not torch.isnan(y).any()
                   and torch.allclose(y.float(), yr, atol=atol, rtol=rtol)
@@ -728,7 +773,8 @@ def ssd_edge_checks():
     torch.cuda.synchronize()
     check(not bad, f"ssd_scan edge checks: {len(bad)} of {n} failed: {bad[:6]}")
     log(f"edge: ssd_scan — {n} cases (f32/bf16 x G {{1, 2}} x chunk {{16, 64, 256}} x P "
-        f"{{16, 64}} x N {{16, 128}} x B {{1, 2}} x S a multiple of chunk and not): OK; max "
+        f"{{16, 64}} x N {{16, 128}} x B {{1, 2}} x S 2, 3 and 8 chunks and 2 chunks + 7): "
+        f"OK; max "
         f"abs err {worst} (tolerances {SSD_TOL}); bf16 against the bf16 plain version: "
         f"relative L2 at most {worst_l2:.3e} (tolerance {SSD_BF16_REL_L2})")
 
@@ -857,12 +903,41 @@ def ssd_row(launches, reps: int):
         plain_ms=time_ms(lambda: ssd_chunked(x, dt, A_log, Bm, Cm, q), max(reps // 4, 2)),
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
+        earlier_ms=EARLIER_MS["ssd_scan"], variant=PATH_VARIANT["ssd_scan"],
+        stages_ms=device_ms_by_kernel(lambda: ssd_scan_fwd(x, dt, A_log, Bm, Cm, q)),
         shape=[list(xs), list(bs)], dtype=dts, chunk=q, flop=flop, bytes=nbytes)
     log(f"kernel ssd_scan: x {xs} B/C {bs} {dts} chunk {q} launches {cnt} max_abs_err "
-        f"{row['max_abs_err']} (against the plain version in f32) | {row['ms']:.4f} ms vs "
+        f"{row['max_abs_err']} (against the plain version in f32) | {row['ms']:.4f} ms "
+        f"(earlier design {row['earlier_ms']} ms; f32 FMA floor "
+        f"{flop / F32_FLOP_PER_S * 1e3:.4f} ms) vs "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {flop:.3e} FLOP / 989 TFLOP/s, "
-        f"{nbytes} B / 3.35 TB/s) | plain {row['plain_ms']:.4f} ms | library none")
+        f"{nbytes} B / 3.35 TB/s) | plain {row['plain_ms']:.4f} ms | library none; device ms "
+        f"per call by launch {row['stages_ms']}")
     return row
+
+
+def device_ms_by_kernel(fn, reps: int = 10) -> dict:
+    """``{kernel name: device ms per call}`` of ``fn``'s launches, from
+    ``torch.profiler`` over ``reps`` calls after a warm-up (empty where the
+    profiler sees no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if getattr(e, "device_type", None) == DeviceType.CUDA and us > 0:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+            name = name.split()[-1].split("::")[-1]  # "void ns::ssd_cb" -> "ssd_cb"
+            out[name] = round(us / 1e3 / reps, 4)
+    return out
 
 
 def moe_row(launches, reps: int):
@@ -1020,6 +1095,7 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note=""):
     want = expect(len(prefill.ms), len(decode.ms))
     launches = {k: (fns[k].launches, fns[k].tune_launches, sorted(fns[k].geometries))
                 for k in want}
+    routes = {k: dict(fns[k].launches_by_variant) for k in want if k in PATH_VARIANT}
     peak = torch.cuda.max_memory_allocated()
 
     done = [t.result(60.0) for t in tickets]
@@ -1028,6 +1104,10 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note=""):
     check(len(prefill.ms) == SERVE_REQUESTS, f"{label}: {len(prefill.ms)} prefills")
     for k, n in want.items():
         check(fns[k].launches == n, f"{label}: {k} launches {fns[k].launches}, expected {n}")
+        if k in PATH_VARIANT:
+            check(fns[k].launches_by_variant == {PATH_VARIANT[k]: n},
+                  f"{label}: {k} launches by route {fns[k].launches_by_variant}, expected "
+                  f"all {n} through {PATH_VARIANT[k]}")
     tasks = job.metrics("tasks")
     check(tasks["serve"] > 0 and tasks["failed"] == 0, f"{label}: job tasks {tasks}")
     st = fd.stats()
@@ -1035,7 +1115,8 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note=""):
     log(f"{label}: {len(done)} requests (prompt lengths {lens.tolist()}) x {SERVE_NEW} "
         f"tokens in {wall * 1e3:.1f} ms: {gen / wall:.1f} generated tokens/s; "
         f"{tasks['serve']} serve ticks in the IJob, {len(decode.ms)} decode steps; kernel "
-        f"launches { {k: fns[k].launches for k in want} } (expected {want})")
+        f"launches { {k: fns[k].launches for k in want} } (expected {want}), by route "
+        f"{routes}")
     log(f"{label}: prefill (time to first token) ms per request "
         f"{[round(x, 3) for x in prefill.ms]}; mean {np.mean(prefill.ms):.3f}")
     log(f"{label}: decode ms per tick over {len(decode.ms)} ticks: median "
@@ -1243,9 +1324,11 @@ def flash_row(launches, reps: int):
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), reps),
+        earlier_ms=EARLIER_MS["flash_attention"], variant=PATH_VARIANT["flash_attention"],
         shape=[list(qs), list(ks)], dtype=dts, flop=flop)
     log(f"kernel flash_attention: q {qs} k/v {ks} {dts} causal launches {cnt} max_abs_err "
-        f"{row['max_abs_err']} | {row['ms']:.4f} ms vs bound {row['bound_ms']:.4f} ms "
+        f"{row['max_abs_err']} | {row['ms']:.4f} ms (earlier design {row['earlier_ms']} ms; "
+        f"f32 FMA floor {flop / F32_FLOP_PER_S * 1e3:.4f} ms) vs bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']}: {flop:.3e} FLOP / 989 TFLOP/s, {nbytes} B / 3.35 TB/s) | "
         f"plain {row['plain_ms']:.4f} ms | library (SDPA) {row['library_ms']:.4f} ms")
     # the longest prompt the serve path admits (2048 tokens), whatever the seed drew
@@ -1261,6 +1344,57 @@ def flash_row(launches, reps: int):
 
 
 CUDA_SOURCES = ("flash_attention", "ssd_scan", "moe_route")
+
+
+def _demangled(names, bin_dir):
+    """``names`` demangled by the toolkit's ``cu++filt`` (or ``c++filt``),
+    as they are where neither is found."""
+    import shutil
+
+    for tool in (os.path.join(bin_dir, "cu++filt"), shutil.which("cu++filt"),
+                 shutil.which("c++filt")):
+        if tool and os.path.exists(tool):
+            r = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                               timeout=60)
+            out = r.stdout.splitlines()
+            if r.returncode == 0 and len(out) == len(names):
+                return [n.replace("(anonymous namespace)::", "") for n in out]
+    return names
+
+
+def tensor_core_counts():
+    """Per CUDA library, per kernel: the tensor-core instructions in its
+    SASS (``HGMMA``: wgmma; ``HMMA``: mma.sync), from ``cuobjdump -sass``
+    where the toolkit has one."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _cuda
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_cuda.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        log("build: no cuobjdump in the toolkit: tensor-core instructions not counted")
+        return
+    for name in CUDA_SOURCES:
+        r = subprocess.run([tool, "-sass", str(_cuda.library_path(name))],
+                           capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            log(f"build: cuobjdump -sass {name} failed ({r.returncode}): {r.stderr[-300:]}")
+            continue
+        fn, counts = None, {}
+        for line in r.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            elif fn is not None:
+                for op in ("HGMMA", "HMMA"):
+                    if re.search(rf"\b{op}\.", line):
+                        counts[fn][op] += 1
+        names = dict(zip(counts, _demangled(list(counts), os.path.dirname(tool))))
+        for fn, c in counts.items():
+            log(f"build: sass {name}: {names[fn][:110]}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}")
 
 
 def build():
@@ -1311,7 +1445,8 @@ def build():
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
 
     x = torch.zeros((1, 1, 1, 64), device="cuda")
-    flash_attention_fwd(x, x, x)
+    flash_attention_fwd(x, x, x)  # the fma route
+    flash_attention_fwd(x.bfloat16(), x.bfloat16(), x.bfloat16())  # the wgmma route
     xs = torch.zeros((1, 16, 2, 16), device="cuda")
     bn = torch.zeros((1, 16, 1, 16), device="cuda")
     ssd_scan_fwd(xs, torch.zeros((1, 16, 2), device="cuda"), torch.zeros(2, device="cuda"),
@@ -1323,6 +1458,7 @@ def build():
         for line in logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"build: ptxas {name}: {line.strip()}")
+    tensor_core_counts()
 
 
 def main() -> int:

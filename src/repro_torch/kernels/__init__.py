@@ -24,7 +24,10 @@ A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises — never the plain version. Each kernel's
 dispatching function carries two plain integer counters: ``launches`` (one
 per call that launched the kernel) and ``tune_launches`` (the same, during
-an autotune sweep, so sweeps are counted apart from the path's own runs).
+an autotune sweep, so sweeps are counted apart from the path's own runs);
+the CUDA kernels of the model zoo also count their launches per route in
+``launches_by_variant`` (flash attention: ``wgmma`` or ``fma``; the SSD
+scan: ``mma``), so a run can show which kernel its path went through.
 
 ``registry.py`` is the capability/selection/autotune layer the shuffle
 engine (core/shuffle_plan.py) consults per wide node.
@@ -54,15 +57,19 @@ def sweeping():
         _sweep.on = prev
 
 
-def count_launch(fn, geometry: tuple) -> None:
+def count_launch(fn, geometry: tuple, variant: str | None = None) -> None:
     """Record one kernel launch on the dispatching function ``fn``, and
     outside sweeps the launch's geometry (shapes and static arguments) in
-    ``fn.geometries`` so a caller can replay the shapes a path used."""
+    ``fn.geometries`` so a caller can replay the shapes a path used, and
+    the launch under its ``variant`` (the kernel route the wrapper chose) in
+    ``fn.launches_by_variant``."""
     if getattr(_sweep, "on", False):
         fn.tune_launches += 1
     else:
         fn.launches += 1
         fn.geometries.add(geometry)
+        if variant is not None:
+            fn.launches_by_variant[variant] = fn.launches_by_variant.get(variant, 0) + 1
 
 
 def counted(fn):
@@ -70,6 +77,7 @@ def counted(fn):
     fn.launches = 0
     fn.tune_launches = 0
     fn.geometries = set()
+    fn.launches_by_variant = {}
     return fn
 
 
@@ -125,4 +133,5 @@ def reset_launches() -> None:
         fn.launches = 0
         fn.tune_launches = 0
         fn.geometries = set()
+        fn.launches_by_variant = {}
 

@@ -6,6 +6,14 @@ flash_attention.py::flash_attention_fwd``. The kernel's source,
 is laid out; it is built with ``nvcc`` at the first launch
 (``kernels/_cuda.py``) and called through ``ctypes`` on the tensors'
 current stream.
+
+The kernel has two routes, picked by dtype and head dim before the launch
+(``variant``; the C entry point applies the same rule, which
+``flash_attention_variant`` exports): ``wgmma`` (bf16 at hd 64 and 128,
+both products on the tensor cores with TMA-fed tiles) and ``fma`` (f32 at
+every hd, and bf16 at hd 256: f32 FMAs on the CUDA cores). Each launch is
+counted under its route in ``flash_attention_fwd.launches_by_variant``.
+Neither route falls back to the other: a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -18,7 +26,17 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims the bf16 tensor-core route takes (at hd 256 its O accumulator
+#: would not fit beside S and P in a warpgroup's registers)
+WGMMA_HEAD_DIMS = (64, 128)
 _fn = None
+
+
+def variant(dtype, hd: int) -> str:
+    """The route a CUDA call of this dtype and head dim takes: ``wgmma``
+    for bf16 at hd 64 or 128, else ``fma`` (f32 inputs hold a tolerance
+    that bf16 or TF32 products cannot)."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "fma"
 
 
 def _entry():
@@ -50,6 +68,9 @@ def _check(q, k, v, q_offset, kv_len, window, softcap):
     if window is not None and window <= 0 or softcap < 0:
         raise ValueError(f"flash kernel: window {window} must be positive, softcap "
                          f"{softcap} non-negative")
+    if variant(q.dtype, hd) == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash kernel (wgmma route): q, k, v must start on 16-byte "
+                         "boundaries, as TMA reads them")
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise NotImplementedError(
             "the flash kernel has no backward yet: run it under torch.no_grad(); "
@@ -81,5 +102,6 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=0.0,
                  torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.raise_on_error("flash_attention", err, "flash attention")
     count_launch(flash_attention_fwd, (tuple(q.shape), tuple(k.shape), str(q.dtype),
-                                       bool(causal), window, float(softcap), int(q_offset)))
+                                       bool(causal), window, float(softcap), int(q_offset)),
+                 variant(q.dtype, hd))
     return o

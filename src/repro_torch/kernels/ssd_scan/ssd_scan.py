@@ -4,7 +4,9 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/ssd_scan/ssd_scan.py::
 ssd_scan_fwd``. The kernel's source, ``src/repro_torch/csrc/ssd_scan.cu``,
 says what bounds it and how it is laid out; it is built with ``nvcc`` at the
 first launch (``kernels/_cuda.py``) and called through ``ctypes`` on the
-tensors' current stream.
+tensors' current stream. One call is four launches (C·Bᵀ, the chunks' own
+states, the pass across chunks, the chunk scan), counted as one launch of
+route ``mma`` (the products on the tensor cores).
 """
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ import torch
 from repro_torch.kernels import _cuda, count_launch, counted, require_cuda
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
-#: the largest chunk the kernel takes (a row tile of the chunk's score
-#: matrix and the chunk's x·Δ sit in shared memory)
+#: the largest chunk the kernel takes (a block scans the chunk's decays, two
+#: steps a thread)
 MAX_CHUNK = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
@@ -56,6 +58,13 @@ def _check(x, dt, A_log, Bm, Cm, chunk):
             "its autograd.Function comes with the training slice (ROADMAP A.8.1)")
 
 
+def workspace_floats(B, S, H, P, G, N, chunk) -> int:
+    """Floats of the kernel's scratch: C·Bᵀ of every (batch, chunk, group);
+    per (batch, chunk, head) its own state (then its incoming one), its
+    total decay, and its cumulative decays and steps."""
+    return B * (S // chunk) * (G * chunk * chunk + H * P * N + H + 2 * H * chunk)
+
+
 @counted
 def ssd_scan_fwd(x, dt, A_log, Bm, Cm, chunk):
     """x: (B, S, H, P); dt: (B, S, H) f32; A_log: (H,) f32; Bm/Cm: (B, S, G,
@@ -69,14 +78,15 @@ def ssd_scan_fwd(x, dt, A_log, Bm, Cm, chunk):
     G, N = Bm.shape[2], Bm.shape[3]
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    # scratch: C·Bᵀ of every (batch, chunk, group), computed once per group
-    cb = torch.empty((B, S // chunk, G, chunk, chunk), dtype=torch.float32, device=x.device)
+    work = torch.empty(workspace_floats(B, S, H, P, G, N, chunk), dtype=torch.float32,
+                       device=x.device)
     fn = _entry()
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), Bm.data_ptr(),
-                 Cm.data_ptr(), y.data_ptr(), state.data_ptr(), cb.data_ptr(),
+                 Cm.data_ptr(), y.data_ptr(), state.data_ptr(), work.data_ptr(),
                  _DTYPES[x.dtype], B, S, H, P, G, N, int(chunk),
                  torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.raise_on_error("ssd_scan", err, "ssd_scan")
-    count_launch(ssd_scan_fwd, (tuple(x.shape), tuple(Bm.shape), str(x.dtype), int(chunk)))
+    count_launch(ssd_scan_fwd, (tuple(x.shape), tuple(Bm.shape), str(x.dtype), int(chunk)),
+                 "mma")
     return y, state

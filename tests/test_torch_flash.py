@@ -112,3 +112,50 @@ def test_cuda_library_name_follows_its_source(tmp_path, monkeypatch):
     monkeypatch.setattr(_cuda, "CSRC", tmp_path)
     assert _cuda.library_path("flash_attention") != path
     assert "-gencode" in _cuda.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "fma"),  # its O accumulator would not fit beside S and P
+    (torch.float32, 64, "fma"), (torch.float32, 128, "fma"), (torch.float32, 256, "fma"),
+])
+def test_the_wrapper_routes_by_dtype_and_head_dim(dtype, hd, route):
+    """The route a CUDA call takes is decided before the launch from its
+    dtype and head dim (the C entry point applies the same rule; the card's
+    run checks the two agree): bf16 at hd 64 and 128 on the tensor cores,
+    f32 at every hd and bf16 at hd 256 on the FMA kernel."""
+    assert fa.variant(dtype, hd) == route
+    assert set(fa.WGMMA_HEAD_DIMS) <= set(fa.HEAD_DIMS)
+
+
+def test_cpu_calls_of_either_route_count_no_launch():
+    """A bf16 call at hd 128 (the serve path's, wgmma on the card) and an
+    f32 one (fma on the card) both take the plain version on the CPU and
+    count no launch under any route."""
+    kernels.reset_launches()
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.from_numpy(a).to(dtype) for a in _inputs(5, 1, 4, 2, 8, 8, 128))
+        out = fa.flash_attention_fwd(q, k, v)
+        torch.testing.assert_close(out, attention_ref(q, k, v), atol=0, rtol=0)
+    fn = fa.flash_attention_fwd
+    assert fn.launches == 0 and fn.launches_by_variant == {} and not fn.geometries
+
+
+def test_a_shared_header_rekeys_every_cuda_library(tmp_path, monkeypatch):
+    """The CUDA sources include ``csrc/sm90.cuh``; an edit of that header
+    builds every library anew (each library's name hashes its source, every
+    shared header and the flags)."""
+    srcs = sorted(_cuda.CSRC.glob("*.cu*"))
+    assert _cuda.CSRC / "sm90.cuh" in srcs
+    for name in ("flash_attention", "ssd_scan"):
+        assert '#include "sm90.cuh"' in (_cuda.CSRC / f"{name}.cu").read_text()
+    for src in srcs:
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    names = [src.stem for src in srcs if src.suffix == ".cu"]
+    assert {"flash_attention", "ssd_scan", "moe_route"} <= set(names)
+    before = {n: _cuda.library_path(n) for n in names}
+    header = tmp_path / "sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _cuda.library_path(n) for n in names}
+    assert all(before[n] != after[n] and after[n].name.startswith(f"{n}-") for n in names)
