@@ -12,8 +12,8 @@
 // 4.3e10 FLOP against 50 MB of q, k, v and o, some 850 FLOP per byte, far
 // above the H100's ~295 bf16 tensor-core FLOP per byte of HBM.
 //
-// Two routes, chosen by dtype and head dim before launch (the wrapper
-// applies the same rule, flash_attention_variant below, and counts each):
+// Two routes. The wrapper chooses one by dtype and head dim before the
+// launch, counts it and passes it in; the entry point only dispatches:
 //
 // wgmma (bf16, hd 64 and 128: every call of the serve paths). The first
 // design ran both products as f32 FMAs on the CUDA cores with operands read
@@ -67,9 +67,6 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-
-// the route of a (dtype, hd) call: 0 = fma, 1 = wgmma
-int variant_of(int dtype, int hd) { return dtype == 1 && (hd == 64 || hd == 128) ? 1 : 0; }
 
 // ---------------------------------------------------------------------------
 // fma: f32 FMAs on the CUDA cores
@@ -515,27 +512,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 
 }  // namespace
 
-// The route flash_attention_fwd takes for a call of this dtype (0 =
-// float32, 1 = bfloat16) and head dim: 0 = fma, 1 = wgmma.
-extern "C" int flash_attention_variant(int dtype, int hd) { return variant_of(dtype, hd); }
-
 // q (B, H, Sq, hd); k, v (B, H / G, Skv, hd); o (B, H, Sq, hd); all
-// contiguous, of one dtype: 0 = float32, 1 = bfloat16 (the wgmma route
-// also wants 16-byte aligned q, k, v). window <= 0 means no window;
-// softcap <= 0 means no soft-cap. Launches on `stream` and returns
-// cudaGetLastError() after the launch (0 on success).
+// contiguous, of one dtype: 0 = float32, 1 = bfloat16. route: 0 = fma (f32
+// or bf16, hd 64, 128 or 256), 1 = wgmma (bf16 at hd 64 or 128, q, k, v
+// 16-byte aligned); any other combination returns cudaErrorInvalidValue.
+// window <= 0 means no window; softcap <= 0 means no soft-cap. Launches on
+// `stream` and returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int H, int G, int Sq, int Skv, int hd,
-                                   int q_offset, int kv_len, int causal, int window,
+                                   int dtype, int route, int B, int H, int G, int Sq, int Skv,
+                                   int hd, int q_offset, int kv_len, int causal, int window,
                                    float softcap, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant_of(dtype, hd) == 1) {
+  if (route == 1) {
+    if (dtype != 1 || (hd != 64 && hd != 128)) return cudaErrorInvalidValue;
     if (hd == 64)
       return wgmma_route::launch<64>(q, k, v, o, B, H, G, Sq, Skv, q_offset, kv_len, causal, window,
                             softcap, scale, s);
     return wgmma_route::launch<128>(q, k, v, o, B, H, G, Sq, Skv, q_offset, kv_len, causal, window,
                            softcap, scale, s);
   }
+  if (route != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
     return fma_route::launch_hd<float>(hd, q, k, v, o, B, H, G, Sq, Skv, q_offset, kv_len, causal,
                                  window, softcap, scale, s);

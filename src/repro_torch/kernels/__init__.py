@@ -25,9 +25,9 @@ launches the kernel or raises — never the plain version. Each kernel's
 dispatching function carries two plain integer counters: ``launches`` (one
 per call that launched the kernel) and ``tune_launches`` (the same, during
 an autotune sweep, so sweeps are counted apart from the path's own runs);
-the CUDA kernels of the model zoo also count their launches per route in
-``launches_by_variant`` (flash attention: ``wgmma`` or ``fma``; the SSD
-scan: ``mma``), so a run can show which kernel its path went through.
+a kernel with more than one route also counts its launches per route in
+``launches_by_variant`` (flash attention: ``wgmma`` or ``fma``), so a run
+can show which route its path went through.
 
 ``registry.py`` is the capability/selection/autotune layer the shuffle
 engine (core/shuffle_plan.py) consults per wide node.

@@ -7,13 +7,13 @@ is laid out; it is built with ``nvcc`` at the first launch
 (``kernels/_cuda.py``) and called through ``ctypes`` on the tensors'
 current stream.
 
-The kernel has two routes, picked by dtype and head dim before the launch
-(``variant``; the C entry point applies the same rule, which
-``flash_attention_variant`` exports): ``wgmma`` (bf16 at hd 64 and 128,
-both products on the tensor cores with TMA-fed tiles) and ``fma`` (f32 at
-every hd, and bf16 at hd 256: f32 FMAs on the CUDA cores). Each launch is
-counted under its route in ``flash_attention_fwd.launches_by_variant``.
-Neither route falls back to the other: a failed build or launch raises.
+The kernel has two routes. ``variant`` picks one by dtype and head dim
+before the launch and the wrapper passes it to the C entry point, which
+only dispatches: ``wgmma`` (bf16 at hd 64 and 128, both products on the
+tensor cores with TMA-fed tiles) and ``fma`` (f32 at every hd, and bf16 at
+hd 256: f32 FMAs on the CUDA cores). Each launch is counted under its route
+in ``flash_attention_fwd.launches_by_variant``. Neither route falls back to
+the other: a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {"fma": 0, "wgmma": 1}
 #: head dims the bf16 tensor-core route takes (at hd 256 its O accumulator
 #: would not fit beside S and P in a warpgroup's registers)
 WGMMA_HEAD_DIMS = (64, 128)
@@ -43,7 +44,7 @@ def _entry():
     global _fn
     if _fn is None:
         _fn = _cuda.entry("flash_attention", "flash_attention_fwd",
-                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
                           + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     return _fn
 
@@ -91,17 +92,18 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=0.0,
                              window=window, softcap=softcap, q_offset=q_offset)
     _check(q, k, v, q_offset, kv_len, window, softcap)
     B, H, Sq, hd = q.shape
+    route = variant(q.dtype, hd)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
     fn = _entry()
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _DTYPES[q.dtype],
-                 B, H, H // k.shape[1], Sq, Skv, hd, int(q_offset), kv_len, int(bool(causal)),
-                 -1 if window is None else int(window), float(softcap or 0.0), hd**-0.5,
+                 _ROUTES[route], B, H, H // k.shape[1], Sq, Skv, hd, int(q_offset), kv_len,
+                 int(bool(causal)), -1 if window is None else int(window), float(softcap or 0.0), hd**-0.5,
                  torch.cuda.current_stream(q.device).cuda_stream)
     _cuda.raise_on_error("flash_attention", err, "flash attention")
     count_launch(flash_attention_fwd, (tuple(q.shape), tuple(k.shape), str(q.dtype),
                                        bool(causal), window, float(softcap), int(q_offset)),
-                 variant(q.dtype, hd))
+                 route)
     return o

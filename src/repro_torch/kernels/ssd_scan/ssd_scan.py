@@ -5,8 +5,7 @@ ssd_scan_fwd``. The kernel's source, ``src/repro_torch/csrc/ssd_scan.cu``,
 says what bounds it and how it is laid out; it is built with ``nvcc`` at the
 first launch (``kernels/_cuda.py``) and called through ``ctypes`` on the
 tensors' current stream. One call is four launches (C·Bᵀ, the chunks' own
-states, the pass across chunks, the chunk scan), counted as one launch of
-route ``mma`` (the products on the tensor cores).
+states, the pass across chunks, the chunk scan), counted as one launch.
 """
 from __future__ import annotations
 
@@ -87,6 +86,5 @@ def ssd_scan_fwd(x, dt, A_log, Bm, Cm, chunk):
                  _DTYPES[x.dtype], B, S, H, P, G, N, int(chunk),
                  torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.raise_on_error("ssd_scan", err, "ssd_scan")
-    count_launch(ssd_scan_fwd, (tuple(x.shape), tuple(Bm.shape), str(x.dtype), int(chunk)),
-                 "mma")
+    count_launch(ssd_scan_fwd, (tuple(x.shape), tuple(Bm.shape), str(x.dtype), int(chunk)))
     return y, state

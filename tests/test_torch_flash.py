@@ -121,8 +121,8 @@ def test_cuda_library_name_follows_its_source(tmp_path, monkeypatch):
 ])
 def test_the_wrapper_routes_by_dtype_and_head_dim(dtype, hd, route):
     """The route a CUDA call takes is decided before the launch from its
-    dtype and head dim (the C entry point applies the same rule; the card's
-    run checks the two agree): bf16 at hd 64 and 128 on the tensor cores,
+    dtype and head dim (the wrapper passes it to the C entry point, which
+    only dispatches): bf16 at hd 64 and 128 on the tensor cores,
     f32 at every hd and bf16 at hd 256 on the FMA kernel."""
     assert fa.variant(dtype, hd) == route
     assert set(fa.WGMMA_HEAD_DIMS) <= set(fa.HEAD_DIMS)
