@@ -14,9 +14,10 @@ Phases, all of them on every run (each prints its lines; any failure exits
 non-zero):
 
 1. build   — one ``nvcc`` per CUDA source (flash attention, SSD scan, MoE
-             router; ``sm_90a``, into ``build/kernels/cuda``, where the
-             port's loader finds them), all started at once, while each
-             Triton kernel compiles at its first launch
+             router, segmented scan; ``sm_90a``, into
+             ``build/kernels/cuda``, where the port's loader finds them),
+             all started at once, while each Triton kernel (prefix scan,
+             bucket router) compiles at its first launch
              (cached under ``build/kernels/triton`` unless TRITON_CACHE_DIR
              says otherwise); then each CUDA kernel's first launch (flash
              on both routes), ptxas' register and spill lines, and each
@@ -29,8 +30,12 @@ non-zero):
              up to 2048), each case counted under the route the wrapper
              names for it; the SSD scan over dtypes, groups, chunks,
              widths, batches, 2, 3 and 8 chunks and ragged lengths; the
-             router over expert counts, k, token counts, capacities, tied
-             and non-finite logits;
+             router over expert counts up to 64, k, token counts from 1 to
+             8192 (one tile, a tile's edge, many tiles), capacities, tied
+             and non-finite logits; the segmented-scan kernel over D, dtypes,
+             ops, N at its tile's edge and over 20000 tiles, and boundaries
+             only at row 0, at every row or at random; each router and
+             segmented-scan case launched back to back, every result held;
 3. hybrid  — the hybrid job, twice with ``ignis.kernels=auto`` (launch
              counters reset before each run) and once with ``off``: branch A
              ``map → reduceByKey(add)`` and ``reduceByKey(max)`` (PSRS sort
@@ -43,13 +48,17 @@ non-zero):
              per-word maxima equal a numpy oracle, every collected frame of
              the kernel runs equals the ``off`` run bit for bit and row for
              row in the order it came back, no fallback, no overflow retry
-             and no new wide plan on the second run. Each run also reports
+             and no new wide plan on the second run, every
+             ``segment_totals`` call on the path launching the CUDA
+             segmented scan once (the Triton scan is gone). Each run also reports
              the wall time spent in ``to_host`` (the driver-side conversion
              of collected blocks to row trees) and in autotune sweeps. Then
              each hybrid kernel against its plain version on the card at
              the main path's largest shape (integers bit for bit; float sums
-             within a stated tolerance), timed with CUDA events beside its
-             bound and, where one exists, the library call;
+             within a stated tolerance), timed with CUDA events and with
+             ``torch.profiler`` (device time; the segmented scan must list
+             one kernel and its memset per call) beside its bound and,
+             where one exists, the library call;
 4. qwen,   — after the previous phase's memory is released, each model
    mamba,    (random bf16 weights from a seeded generator) serves 8 requests
    mixtral   of 512–2048 prompt tokens x 32 new tokens on 4 slots of a
@@ -72,7 +81,9 @@ non-zero):
              new kernel at its largest shape, timed beside its bound, its
              plain version and, for flash, torch's SDPA (the log line also
              gives the earlier design's recorded time, ``RECORDED_EARLIER_MS``,
-             which this run does not measure).
+             which this run does not measure); the router at the largest
+             prefill and at a decode tick (T = 4), by device time
+             (``torch.profiler``) and the wrapper's host µs per call.
 
 The last two lines are the ``kernels`` JSON object (with the card's name and
 power limit just before it) and ``{"ok": true, "device": {...}}``.
@@ -81,6 +92,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -177,19 +189,34 @@ class Spans:
 
 
 TO_HOST, SWEEPS = Spans(), Spans()
+#: ``segment_totals`` calls with rows, on the path and in autotune sweeps
+SEG_CALLS = {"path": 0, "sweep": 0}
 
 
 def instrument():
     """Time two parts of each job with ``perf_counter``: ``to_host`` (the
     driver boundary of collect: blocks to host row trees) after the device
     has finished the work queued before it, and the kernel registry's
-    sweeping blocks (capability probes and autotune sweeps)."""
+    sweeping blocks (capability probes and autotune sweeps); and count the
+    ``segment_totals`` calls with rows (``SEG_CALLS``): each one on the path
+    must launch the segmented-scan kernel once."""
     import contextlib
 
     import torch
 
+    from repro_torch import kernels
     from repro_torch.core import dataframe
     from repro_torch.kernels import registry
+    from repro_torch.kernels.segment_reduce import ops as seg_ops
+
+    totals = seg_ops.segment_totals
+
+    def counted_totals(keys, *a, **kw):
+        if keys.shape[0]:
+            SEG_CALLS["sweep" if getattr(kernels._sweep, "on", False) else "path"] += 1
+        return totals(keys, *a, **kw)
+
+    seg_ops.segment_totals = counted_totals
 
     to_host, sweeping = dataframe.to_host, registry.sweeping
 
@@ -295,9 +322,12 @@ def main_path(args):
     w = worker("auto")
     frames = hybrid(w, words, marks, dim_keys, dim_vals)
     results, launches = [], []
+    check(importlib.util.find_spec("repro_torch.kernels.segment_reduce._triton") is None,
+          "the Triton segmented scan is still in the port")
     for run in (1, 2):
         before = w.metrics()
         K.reset_launches()
+        SEG_CALLS.update(path=0, sweep=0)
         results.append(run_job(frames, f"auto run {run}"))
         fns = K.launch_counters()
         launches.append({k: (fns[k].launches, fns[k].tune_launches,
@@ -305,9 +335,13 @@ def main_path(args):
         after = w.metrics()
         log(f"main[auto run {run}]: launches "
             f"{ {k: v[0] for k, v in launches[-1].items()} } "
-            f"(autotune sweeps apart: { {k: v[1] for k, v in launches[-1].items()} })")
+            f"(autotune sweeps apart: { {k: v[1] for k, v in launches[-1].items()} }); "
+            f"segment_totals calls {SEG_CALLS}")
         for k, (cnt, _t, _g) in launches[-1].items():
             check(cnt > 0, f"run {run}: kernel {k} was never launched")
+        check(fns["segment_reduce"].launches == SEG_CALLS["path"],
+              f"run {run}: {SEG_CALLS['path']} segment_totals calls on the path against "
+              f"{fns['segment_reduce'].launches} segmented-scan launches")
         check(after["kernels"]["kernel_fallbacks"] == 0, "a kernel fell back")
         if run == 2:
             d_retry = (after["shuffle"]["overflow_retries"]
@@ -489,6 +523,89 @@ def edge_checks():
         "demand, all rows to one destination: OK")
 
 
+#: the segmented scan's edge cases: D, then boundaries only at row 0 (one
+#: segment over every tile: the look-back walks back until it meets a
+#: published prefix), at every row, and at 5 % of the rows
+SEG_EDGE_D = (1, 2, 3, 8)
+SEG_EDGE_KINDS = ("row0", "every", "random")
+#: back-to-back launches of each case: a tile counter or look-back word left
+#: over from the launch before would hand out tiles past the grid or carry a
+#: stale prefix
+BACK_TO_BACK = 3
+#: the segmented scan's blocks (threads per block) the autotune sweeps by
+#: default (``ignis.kernels.blocks``); its row reports the fastest
+SEG_BLOCKS = (128, 256, 512)
+
+
+def segment_edge_checks():
+    """The segmented-scan kernel alone against ``segment_scan_plain`` on the
+    card: D in ``SEG_EDGE_D``, int32 and f32, sum/max/min, boundaries as in
+    ``SEG_EDGE_KINDS``; N of 1, a tile's rows - 1, a tile (one tile), a tile
+    + 1, three tiles + 1 (block 256: tiles of 4096 rows at D = 1, 1024
+    otherwise) and over 20000 tiles (block 32: tiles of 512 and 128 rows).
+    The values are integers (the f32 ones too, and every partial sum stays
+    below 2^24), so every case is held bit for bit; random f32 sums at
+    random boundaries are held within rtol 1e-5, atol 1e-4. Each case runs
+    ``BACK_TO_BACK`` launches with no synchronize between them, and every
+    result is held."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.segment_reduce.ref import segment_scan_plain
+    from repro_torch.kernels.segment_reduce.segment_reduce import (rows_per_tile,
+                                                                   segment_reduce_fwd)
+
+    r = _Rand(8)
+    n_cases, bad, most_tiles = 0, [], 0
+
+    def flags(kind, n):
+        if kind == "row0":
+            hb = torch.zeros(n, dtype=torch.bool, device=r.dev)
+        elif kind == "every":
+            hb = torch.ones(n, dtype=torch.bool, device=r.dev)
+        else:
+            hb = r.rand(n) < 0.05
+        hb[0] = True
+        return hb
+
+    def run(vals, hb, op, block, what, exact_bits):
+        before = segment_reduce_fwd.launches
+        outs = [segment_reduce_fwd(vals, hb, op=op, block=block) for _ in range(BACK_TO_BACK)]
+        ref = segment_scan_plain(vals, hb, op)
+        if segment_reduce_fwd.launches != before + BACK_TO_BACK:
+            bad.append(f"{what}: not counted as {BACK_TO_BACK} launches")
+        for i, o in enumerate(outs):
+            same = o.dtype == ref.dtype and o.shape == ref.shape and (
+                torch.equal(o, ref) if exact_bits
+                else torch.allclose(o, ref, rtol=1e-5, atol=1e-4))
+            if not same:
+                bad.append(f"{what}, launch {i + 1}: max abs err {max_err(o, ref)}")
+
+    for d, dt, op in itertools.product(SEG_EDGE_D, (torch.int32, torch.float32),
+                                       ("sum", "max", "min")):
+        tile = rows_per_tile(d, 256)
+        many = rows_per_tile(d, 32) * 20000 + 1
+        most_tiles = max(most_tiles, -(-many // rows_per_tile(d, 32)))
+        for n, block in ((1, 256), (tile - 1, 256), (tile, 256), (tile + 1, 256),
+                         (3 * tile + 1, 256), (many, 32)):
+            vals = r.ints(n, -50, 50, (n, d)).to(dt)
+            for kind in SEG_EDGE_KINDS:
+                run(vals, flags(kind, n), op, block,
+                    f"segment_reduce N={n} D={d} {dt} {op} block={block} {kind}", True)
+                n_cases += 1
+    for d, n in itertools.product(SEG_EDGE_D, (4097, 70001, 1000001)):
+        run(r.rand(n, d) - 0.5, flags("random", n), "sum", 256,
+            f"segment_reduce random f32 sums N={n} D={d}", False)
+        n_cases += 1
+    torch.cuda.synchronize()
+    check(not bad, f"segment_reduce edge checks: {len(bad)} failed of {n_cases}: {bad[:6]}")
+    log(f"edge: segment_reduce kernel — {n_cases} cases (D {SEG_EDGE_D} x i32/f32 x sum/max/"
+        f"min x N 1, a tile -1, a tile, +1, 3 tiles + 1 and {most_tiles} tiles x boundaries "
+        f"{SEG_EDGE_KINDS}, bit for bit; random f32 sums within rtol 1e-5, atol 1e-4), each "
+        f"launched {BACK_TO_BACK} times back to back: OK")
+
+
 def kernel_checks(main_launches, reps: int):
     """Each kernel against its plain version at the main path's largest
     shape, then timed beside its bound, its plain version and the library
@@ -514,18 +631,30 @@ def kernel_checks(main_launches, reps: int):
     hb = r.rand(n) < 0.05
     hb[0] = True
     fwd, plain = segment_reduce_fwd, segment_scan_plain
-    got, ref = fwd(v, hb, op=op, block=256), plain(v, hb, op)
-    exact(got, ref, f"segment_reduce {n}x{d} {op}")
+    ref = plain(v, hb, op)
+    ms_by_block, err = {}, 0.0
+    for block in SEG_BLOCKS:  # as the autotune sweeps them
+        got = fwd(v, hb, op=op, block=block)
+        exact(got, ref, f"segment_reduce {n}x{d} {op} block={block}")
+        err = max(err, max_err(got, ref))
+        ms_by_block[block] = time_ms(lambda: fwd(v, hb, op=op, block=block), reps)
+    best = min(ms_by_block, key=ms_by_block.get)
     nbytes = 2 * n * d * 4 + n  # values in, scan out, flags in
+    by_ms, per_call = device_profile(lambda: fwd(v, hb, op=op, block=best))
+    check(set(per_call) == {"seg_scan_kernel", "Memset"}
+          and all(c == 1 for c in per_call.values()),
+          f"segment_reduce: the profiler lists {per_call} launches per call, not one "
+          f"kernel and its memset")
     rows.append(dict(
-        name="segment_reduce", route="triton",
-        source="src/repro_torch/kernels/segment_reduce/segment_reduce.py",
+        name="segment_reduce", route="cuda", source="src/repro_torch/csrc/segment_reduce.cu",
         replaces="src/repro/kernels/segment_reduce/segment_reduce.py:56",
-        launches=main_launches["segment_reduce"][0], max_abs_err=max_err(got, ref),
-        ms=time_ms(lambda: fwd(v, hb, op=op, block=256), reps),
+        launches=main_launches["segment_reduce"][0], max_abs_err=err, ms=ms_by_block[best],
         plain_ms=time_ms(lambda: plain(v, hb, op), max(reps // 4, 2)),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None, shape=[n, d], op=op))
+        library_ms=None, device_ms=round(sum(by_ms.values()), 6),
+        device_ms_by_kernel=by_ms, launches_per_call=per_call, block=best,
+        ms_by_block=ms_by_block, shape=[n, d], op=op))
+    del v, hb, ref, got
 
     (n,), op = largest("prefix_scan")
     x = r.ints(n, 0, n)
@@ -542,7 +671,8 @@ def kernel_checks(main_launches, reps: int):
         ms=time_ms(lambda: fwd(x, op=op, block=512), reps),
         plain_ms=time_ms(lambda: plain(x, op), max(reps // 4, 2)),
         bound_ms=2 * n * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=time_ms(lib, max(reps // 4, 2)), shape=[n], op=op))
+        library_ms=time_ms(lib, max(reps // 4, 2)),
+        device_ms=device_ms(lambda: fwd(x, op=op, block=512)), shape=[n], op=op))
 
     (n,), P, C = largest("bucket_route")
     dest = r.ints(n, 0, P)
@@ -559,15 +689,22 @@ def kernel_checks(main_launches, reps: int):
         ms=time_ms(lambda: fwd(dest, P, C, block=128), reps),
         plain_ms=time_ms(lambda: plain(dest, P, C), reps),
         bound_ms=(n * 4 + n * 4 + n + P * 4) / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes", library_ms=None, shape=[n], p=P, capacity=C))
+        bound_by="bytes", library_ms=None,
+        device_ms=device_ms(lambda: fwd(dest, P, C, block=128)), shape=[n], p=P, capacity=C))
 
     for row in rows:
         lib = row["library_ms"]
+        earlier = RECORDED_EARLIER_MS.get(row["name"])
         log(f"kernel {row['name']}: shape {row['shape']} launches {row['launches']} "
-            f"max_abs_err {row['max_abs_err']} | {row['ms']:.4f} ms vs bound "
-            f"{row['bound_ms']:.4f} ms (bytes / 3.35 TB/s) | plain "
+            f"max_abs_err {row['max_abs_err']} | {row['ms']:.4f} ms (CUDA events), device "
+            f"{row['device_ms']} ms (torch.profiler)"
+            + (f" (earlier design {earlier} ms as recorded, not measured here)" if earlier else "")
+            + f" vs bound {row['bound_ms']:.4f} ms (bytes / 3.35 TB/s) | plain "
             f"{row['plain_ms']:.4f} ms | library "
-            f"{'none' if lib is None else f'{lib:.4f} ms'}")
+            f"{'none' if lib is None else f'{lib:.4f} ms'}"
+            + (f"; block {row['block']} of {row['ms_by_block']}; device ms per launch "
+               f"{row['device_ms_by_kernel']}, launches per call {row['launches_per_call']}"
+               if "launches_per_call" in row else ""))
     return rows
 
 
@@ -611,11 +748,15 @@ SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_NEW = 4, 4096, 8, 32
 #: the route every launch of a serve path must take, for a kernel with more
 #: than one (``launches_by_variant``): bf16 flash on the tensor cores
 PATH_VARIANT = {"flash_attention": "wgmma"}
-#: each redesigned kernel's time at its row's shape in its earlier f32-FMA
-#: design, as this script recorded it on an NVIDIA H100 80GB HBM3 at a 700 W
-#: power limit; logged beside the new time for a reader, never measured here
-#: and never put in the kernels line
-RECORDED_EARLIER_MS = {"flash_attention": 1.6673, "ssd_scan": 1.6210}
+#: each redesigned kernel's time at its row's shape in its earlier design, as
+#: recorded on an NVIDIA H100 80GB HBM3 at a 700 W power limit (flash and the
+#: SSD scan: their f32-FMA designs, by this script; the segmented scan and
+#: the router: their Triton two-pass and one-block designs, by
+#: tools/time_lookback_kernels.py, CUDA events and torch.profiler device
+#: time respectively); logged beside the new time for a reader, never
+#: measured here and never put in the kernels line
+RECORDED_EARLIER_MS = {"flash_attention": 1.6673, "ssd_scan": 1.6210,
+                       "segment_reduce": 0.9309, "moe_route": 0.0266}
 #: Mixtral-8x7B's layers served: all 32 are 46.7e9 parameters, 93.4 GB in
 #: bf16, above the card's 80 GB; 24 are 35.1e9 (65.6 GiB)
 MIXTRAL_LAYERS = 24
@@ -829,14 +970,23 @@ def _w_err(a, b) -> float:
     return max_err(torch.nan_to_num(a), torch.nan_to_num(b))
 
 
+#: the router's edge cases: T at one token, a decode tick, a tile's tokens
+#: - 1, a tile, a tile + 1 (the first look-back), the prefill's 2048 (8
+#: tiles), 2049 (ragged; the wrapper pads it to 2304) and 8192 (32 tiles);
+#: E up to the kernel's 64
+MOE_EDGE_T = (1, 4, 255, 256, 257, 2048, 2049, 8192)
+MOE_EDGE_E = (4, 8, 16, 64)
+
+
 def moe_edge_checks():
-    """The router kernel against its plain version on the card: E in {4, 8,
-    16}, k in {1, 2}, T in {1, 4, 255, 2048, 2049} (the kernel on its own
-    ragged edge, and through the wrapper, which pads to 256), a capacity that
-    drops and one that does not, random rows, rows with tied logits and rows
-    with a NaN or an infinity (both rank NaN highest, so their expert ids
-    are 0 and 1). Expert ids, ordinals and keep flags bit for bit; weights
-    within ``MOE_W_ATOL``, NaN where the plain version's are."""
+    """The router kernel against its plain version on the card: E in
+    ``MOE_EDGE_E``, k in {1, 2}, T in ``MOE_EDGE_T`` (the kernel alone,
+    ``BACK_TO_BACK`` launches with no synchronize between them, and through
+    the wrapper, which pads to 256), a capacity that drops and one that does
+    not, random rows, rows with tied logits and rows with a NaN or an
+    infinity (both rank NaN highest, so their expert ids are 0 and 1).
+    Expert ids, ordinals and keep flags bit for bit; weights within
+    ``MOE_W_ATOL``, NaN where the plain version's are."""
     import itertools
 
     import torch
@@ -850,30 +1000,34 @@ def moe_edge_checks():
             "tied": lambda T, E: _tied_logits(g, T, E),
             "non-finite": lambda T, E: _non_finite_logits(g, T, E)}
     n, worst, bad = 0, 0.0, []
-    for E, k, T, drop, kind in itertools.product((4, 8, 16), (1, 2), (1, 4, 255, 2048, 2049),
+    for E, k, T, drop, kind in itertools.product(MOE_EDGE_E, (1, 2), MOE_EDGE_T,
                                                  (False, True), make):
         C = max(1, T * k // E // 2) if drop else T * k
         x = make[kind](T, E)
         ref = moe_route_ref(x, k, C)
-        for fn in (lambda: moe_route_fwd(x, k, C), lambda: moe_route(x, k, C)):
-            got = fn()
-            what = f"moe_route E={E} k={k} T={T} C={C} {kind}"
+        before = moe_route_fwd.launches
+        outs = [moe_route_fwd(x, k, C) for _ in range(BACK_TO_BACK)] + [moe_route(x, k, C)]
+        what = f"moe_route E={E} k={k} T={T} C={C} {kind}"
+        if moe_route_fwd.launches != before + BACK_TO_BACK + 1:
+            bad.append(f"{what}: not counted as {BACK_TO_BACK + 1} launches")
+        for i, got in enumerate(outs):
+            call = "the wrapper" if i == BACK_TO_BACK else f"launch {i + 1}"
             for a, b, nm in zip(got[1:], ref[1:], ("idx", "pos", "keep")):
                 if not (a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)):
-                    bad.append(f"{what}: {nm} differs")
+                    bad.append(f"{what}, {call}: {nm} differs")
             err = _w_err(got[0], ref[0])
             if err > MOE_W_ATOL:
-                bad.append(f"{what}: weights max abs err {err}")
+                bad.append(f"{what}, {call}: weights max abs err {err}")
             worst = max(worst, err)
-            n += 1
+        n += 1
         if drop and T > 4:
             check(not ref[3].all(), f"moe_route E={E} T={T} C={C}: nothing dropped")
     torch.cuda.synchronize()
     check(not bad, f"moe_route edge checks: {len(bad)} failed of {n}: {bad[:6]}")
-    log(f"edge: moe_route — {n} cases (E {{4, 8, 16}} x k {{1, 2}} x T {{1, 4, 255, 2048, "
-        f"2049}} x capacity dropping or not x random, tied or non-finite rows, the kernel "
-        f"alone and through the wrapper): ids, ordinals and keep equal; weights max abs err "
-        f"{worst} (tolerance {MOE_W_ATOL})")
+    log(f"edge: moe_route — {n} cases (E {MOE_EDGE_E} x k {{1, 2}} x T {MOE_EDGE_T} x "
+        f"capacity dropping or not x random, tied or non-finite rows; the kernel "
+        f"{BACK_TO_BACK} times back to back and through the wrapper): ids, ordinals and keep "
+        f"equal; weights max abs err {worst} (tolerance {MOE_W_ATOL})")
 
 
 def ssd_flop_bytes(x_shape, bn_shape, chunk, itemsize):
@@ -920,6 +1074,7 @@ def ssd_row(launches, reps: int):
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
         stages_ms=device_ms_by_kernel(lambda: ssd_scan_fwd(x, dt, A_log, Bm, Cm, q)),
+        device_ms=device_ms(lambda: ssd_scan_fwd(x, dt, A_log, Bm, Cm, q)),
         shape=[list(xs), list(bs)], dtype=dts, chunk=q, flop=flop, bytes=nbytes)
     log(f"kernel ssd_scan: x {xs} B/C {bs} {dts} chunk {q} launches {cnt} max_abs_err "
         f"{row['max_abs_err']} (against the plain version in f32) | {row['ms']:.4f} ms "
@@ -928,14 +1083,16 @@ def ssd_row(launches, reps: int):
         f"{flop / F32_FLOP_PER_S * 1e3:.4f} ms) vs "
         f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {flop:.3e} FLOP / 989 TFLOP/s, "
         f"{nbytes} B / 3.35 TB/s) | plain {row['plain_ms']:.4f} ms | library none; device ms "
-        f"per call by launch {row['stages_ms']}")
+        f"per launch {row['stages_ms']}")
     return row
 
 
-def device_ms_by_kernel(fn, reps: int = 10) -> dict:
-    """``{kernel name: device ms per call}`` of ``fn``'s launches, from
-    ``torch.profiler`` over ``reps`` calls after a warm-up (empty where the
-    profiler sees no device time)."""
+def device_profile(fn, reps: int = 10):
+    """``({kernel name: device ms per launch}, {kernel name: launches per
+    call})`` of ``fn``'s launches, from ``torch.profiler`` over ``reps``
+    calls after a warm-up (both empty where the profiler sees no device
+    time); a memset is named ``Memset``. Times are per launch seen: over many
+    short back-to-back launches the profiler can miss a few."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -946,45 +1103,100 @@ def device_ms_by_kernel(fn, reps: int = 10) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    us, count = {}, {}
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        if getattr(e, "device_type", None) == DeviceType.CUDA and us > 0:
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if getattr(e, "device_type", None) == DeviceType.CUDA and t > 0:
             name = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
             name = name.split()[-1].split("::")[-1]  # "void ns::ssd_cb" -> "ssd_cb"
-            out[name] = round(us / 1e3 / reps, 4)
-    return out
+            us[name] = us.get(name, 0.0) + t
+            count[name] = count.get(name, 0) + e.count
+    return ({k: round(us[k] / 1e3 / count[k], 6) for k in us},
+            {k: round(count[k] / reps, 2) for k in us})
+
+
+def device_ms_by_kernel(fn, reps: int = 10) -> dict:
+    """``{kernel name: device ms per launch}`` of ``fn``'s launches."""
+    return device_profile(fn, reps)[0]
+
+
+def device_ms(fn, reps: int = 10):
+    """Device ms per call of ``fn``'s launches, memsets included, from
+    ``torch.profiler`` (None where it sees no device time): each kernel's
+    time per launch times its launches per call, rounded to a whole count."""
+    ms, per_call = device_profile(fn, reps)
+    return round(sum(ms[k] * max(1, round(per_call[k])) for k in ms), 6) if ms else None
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """The host's µs per call of ``fn`` (``time.perf_counter`` over
+    ``calls`` calls with no synchronize inside the loop: the time to issue
+    one call, while the device keeps up)."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def moe_row(launches, reps: int):
-    """The router kernel at the Mixtral path's largest prefill, timed beside
-    its bound and its plain version; no PyTorch call computes this function."""
+    """The router kernel at the Mixtral path's largest prefill and at its
+    decode tick (T = 4), each held against its plain version: device time
+    from ``torch.profiler`` (the row's ``ms``; CUDA events around
+    back-to-back calls time the host's enqueue here, and are kept as
+    ``event_ms``), the wrapper's host µs per call, the plain version's time
+    and the bound; no PyTorch call computes this function."""
     import torch
 
     from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
     from repro_torch.kernels.moe_route.ref import moe_route_ref
 
     cnt, _t, geoms = launches["moe_route"]
-    (T, E), k, C = max(geoms, key=lambda gm: gm[0][0])
     g = torch.Generator(device="cuda").manual_seed(7)
-    x = torch.randn((T, E), generator=g, device="cuda")
-    got, ref = moe_route_fwd(x, k, C), moe_route_ref(x, k, C)
-    for a, b, nm in zip(got[1:], ref[1:], ("idx", "pos", "keep")):
-        exact(a, b, f"moe_route {T}x{E} k={k} C={C} {nm}")
-    err = max_err(got[0], ref[0])
-    check(err <= MOE_W_ATOL, f"moe_route {T}x{E}: weights max abs err {err}")
-    nbytes = T * E * 4 + T * k * (4 + 4 + 4 + 1)
-    row = dict(
+    shapes = {}
+    for label, pick in (("prefill", max), ("decode", min)):
+        (T, E), k, C = pick(geoms, key=lambda gm: gm[0][0])
+        x = torch.randn((T, E), generator=g, device="cuda")
+        got, ref = moe_route_fwd(x, k, C), moe_route_ref(x, k, C)
+        for a, b, nm in zip(got[1:], ref[1:], ("idx", "pos", "keep")):
+            exact(a, b, f"moe_route {T}x{E} k={k} C={C} {nm}")
+        err = max_err(got[0], ref[0])
+        check(err <= MOE_W_ATOL, f"moe_route {T}x{E}: weights max abs err {err}")
+        nbytes = T * E * 4 + T * k * (4 + 4 + 4 + 1)
+        call = lambda: moe_route_fwd(x, k, C)  # noqa: E731
+        by_ms, per_call = device_profile(call, 50)
+        shapes[label] = dict(
+            shape=[T, E], k=k, capacity=C, max_abs_err=err,
+            device_ms=round(sum(by_ms.values()), 6) if by_ms else None,  # one launch of each
+            device_ms_by_kernel=by_ms, launches_per_call=per_call, host_us=host_us(call),
+            event_ms=time_ms(call, reps * 10),
+            plain_ms=time_ms(lambda: moe_route_ref(x, k, C), reps),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+        r = shapes[label]
+        log(f"kernel moe_route ({label}): logits ({T}, {E}) f32 k={k} capacity {C} max_abs_err "
+            f"{err} | device {r['device_ms']} ms (torch.profiler; ms per launch {by_ms}, launches "
+            f"per call seen {per_call}) | host {r['host_us']:.2f} us per call of the wrapper | "
+            f"CUDA events over back-to-back calls {r['event_ms']:.4f} ms"
+            + (f" (earlier design {RECORDED_EARLIER_MS['moe_route']} ms as recorded, not "
+               f"measured here)" if label == "prefill" else "")
+            + f" | bound {r['bound_ms']:.6f} ms (bytes: {nbytes} B / 3.35 TB/s) | plain "
+            f"{r['plain_ms']:.4f} ms | library none")
+    pre = shapes["prefill"]
+    check(pre["device_ms"] is not None, "moe_route: the profiler saw no device time")
+    return dict(
         name="moe_route", route="cuda", source="src/repro_torch/csrc/moe_route.cu",
         replaces="src/repro/kernels/moe_route/moe_route.py:60", launches=cnt,
-        max_abs_err=err, ms=time_ms(lambda: moe_route_fwd(x, k, C), reps),
-        plain_ms=time_ms(lambda: moe_route_ref(x, k, C), reps),
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
-        shape=[T, E], k=k, capacity=C, dtype="torch.float32")
-    log(f"kernel moe_route: logits ({T}, {E}) f32 k={k} capacity {C} launches {cnt} "
-        f"max_abs_err {err} | {row['ms']:.4f} ms vs bound {row['bound_ms']:.6f} ms (bytes: "
-        f"{nbytes} B / 3.35 TB/s) | plain {row['plain_ms']:.4f} ms | library none")
-    return row
+        max_abs_err=max(pre["max_abs_err"], shapes["decode"]["max_abs_err"]),
+        ms=pre["device_ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
+        bound_by="bytes", library_ms=None, device_ms=pre["device_ms"],
+        host_us=pre["host_us"], event_ms=pre["event_ms"], shape=pre["shape"], k=pre["k"],
+        capacity=pre["capacity"], dtype="torch.float32", decode=shapes["decode"])
 
 
 class _Timed:
@@ -1342,6 +1554,7 @@ def flash_row(launches, reps: int):
         bound_by="operations" if t_ops >= t_bytes else "bytes",
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), reps),
+        device_ms=device_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
         shape=[list(qs), list(ks)], dtype=dts, flop=flop)
     log(f"kernel flash_attention: q {qs} k/v {ks} {dts} causal launches {cnt} max_abs_err "
         f"{row['max_abs_err']}, relative L2 {rel:.3e} (tolerance {FLASH_BF16_REL_L2} in bf16) "
@@ -1349,7 +1562,8 @@ def flash_row(launches, reps: int):
         f"recorded, not measured here; "
         f"f32 FMA floor {flop / F32_FLOP_PER_S * 1e3:.4f} ms) vs bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']}: {flop:.3e} FLOP / 989 TFLOP/s, {nbytes} B / 3.35 TB/s) | "
-        f"plain {row['plain_ms']:.4f} ms | library (SDPA) {row['library_ms']:.4f} ms")
+        f"plain {row['plain_ms']:.4f} ms | library (SDPA) {row['library_ms']:.4f} ms | device "
+        f"{row['device_ms']} ms (torch.profiler)")
     # the longest prompt the serve path admits (2048 tokens), whatever the seed drew
     q2 = torch.randn((1, qs[1], 2048, qs[3]), generator=g, device="cuda").to(dt)
     k2 = torch.randn((1, ks[1], 2048, ks[3]), generator=g, device="cuda").to(dt)
@@ -1362,7 +1576,7 @@ def flash_row(launches, reps: int):
     return row
 
 
-CUDA_SOURCES = ("flash_attention", "ssd_scan", "moe_route")
+CUDA_SOURCES = ("flash_attention", "ssd_scan", "moe_route", "segment_reduce")
 
 
 def _demangled(names, bin_dir):
@@ -1439,6 +1653,8 @@ def build():
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
                                             stderr=subprocess.PIPE, text=True), tmp, out)
         for name, probe in registry._PROBES.items():
+            if name in CUDA_SOURCES:
+                continue  # launched below, once its library is built
             t1 = time.perf_counter()
             probe("cuda")
             torch.cuda.synchronize()
@@ -1458,9 +1674,13 @@ def build():
     log(f"build: {len(procs)} CUDA libraries "
         f"{[_cuda.library_path(n).name for n in CUDA_SOURCES]} built by parallel nvcc runs "
         f"in {time.perf_counter() - t0:.2f} s (wall, beside the Triton builds)")
+    for name, probe in registry._PROBES.items():
+        if name in CUDA_SOURCES:
+            probe("cuda")
 
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
     from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_reduce_fwd
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
 
     x = torch.zeros((1, 1, 1, 64), device="cuda")
@@ -1471,6 +1691,9 @@ def build():
     ssd_scan_fwd(xs, torch.zeros((1, 16, 2), device="cuda"), torch.zeros(2, device="cuda"),
                  bn, bn, 16)
     moe_route_fwd(torch.zeros((3, 4), device="cuda"), 2, 2)
+    moe_route_fwd(torch.zeros((300, 4), device="cuda"), 2, 2)  # two tiles: the look-back
+    segment_reduce_fwd(torch.zeros((5000, 1), dtype=torch.int32, device="cuda"),
+                       torch.ones(5000, dtype=torch.bool, device="cuda"))
     torch.cuda.synchronize()
     log("build: first launches of " + ", ".join(CUDA_SOURCES) + ": OK")
     for name in CUDA_SOURCES:
@@ -1507,6 +1730,7 @@ def main() -> int:
     try:
         build()
         edge_checks()
+        segment_edge_checks()
         flash_edge_checks()
         ssd_edge_checks()
         moe_edge_checks()

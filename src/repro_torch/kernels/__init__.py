@@ -12,11 +12,12 @@ between them by the device of the tensor it is given:
                     ``ssd_scan``: the Mamba-2 SSD chunk scan (CUDA C++), the
                     SSM mixer's prefill
   segment_reduce  — ``segment_reduce`` / ``segment_totals``: inclusive
-                    segmented scan, the reduceByKey post hook
+                    segmented scan (CUDA C++, one pass with a decoupled
+                    look-back), the reduceByKey post hook
   moe_route       — ``bucket_route``: capacity ordinals for the hash
                     exchange of partitionBy / join; ``moe_route``: softmax,
-                    top-k and expert capacity ordinals (CUDA C++), the MoE
-                    FFN's router
+                    top-k and expert capacity ordinals (CUDA C++, one pass
+                    with a decoupled look-back), the MoE FFN's router
   flash_attention — ``flash_attention``: online-softmax attention forward
                     (CUDA C++), the transformers' prefill attention
 

@@ -19,10 +19,11 @@ def moe_route(logits: torch.Tensor, k: int, capacity: int, block_t: int = 256):
     T, E = logits.shape
     pad = (-T) % block_t if T > block_t else 0
     x = logits
-    if pad:
-        x = torch.cat([x, x.new_full((pad, E), -1e9)])
     if x.is_cuda:
         x = x.float().contiguous()
+    if not pad:  # nothing to cut off: the kernel's outputs as they are
+        return moe_route_fwd(x, k, capacity)
+    x = torch.cat([x, x.new_full((pad, E), -1e9)])
     w, idx, pos, keep = moe_route_fwd(x, k, capacity)
     return w[:T], idx[:T], pos[:T], keep[:T]
 

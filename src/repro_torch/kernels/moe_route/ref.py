@@ -27,9 +27,8 @@ def bucket_route_ref(dest: torch.Tensor, p: int, capacity: int):
     return pos, keep, counts_all[:p].to(torch.int32)
 
 
-def moe_route_ref(logits: torch.Tensor, k: int, capacity: int):
-    """logits: (T, E). Returns (weights (T,k) f32, idx (T,k) i32, pos (T,k)
-    i32 ordinal-within-expert, keep (T,k) bool).
+def _top_k(logits: torch.Tensor, k: int):
+    """(weights (T, k) f32 renormalised, idx (T, k) int64) of the router.
 
     The softmax is ``exp(l - max) / sum`` with the sum taken column by
     column, as the kernel takes it. Top-k is an iterative argmax over the
@@ -37,7 +36,7 @@ def moe_route_ref(logits: torch.Tensor, k: int, capacity: int):
     expert index wins a tie, as with ``jax.lax.top_k``, and it ranks NaN
     highest, so a row of NaN probabilities routes to experts 0 and 1);
     ``torch.topk`` does not promise that order."""
-    T, E = logits.shape
+    E = logits.shape[1]
     lf = logits.float()
     e = torch.exp(lf - lf.max(dim=-1, keepdim=True).values)
     s = e[:, 0]
@@ -52,8 +51,50 @@ def moe_route_ref(logits: torch.Tensor, k: int, capacity: int):
         rem = rem.scatter(1, i, float("-inf"))
     w = torch.cat(ws, dim=1)
     idx = torch.cat(ids, dim=1)
-    w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
-    oh = F.one_hot(idx.reshape(-1), E).to(torch.int32)  # (T·k, E)
+    return w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9), idx
+
+
+def _ordinals(idx: torch.Tensor, E: int):
+    """(T·k, E) one-hot of the flattened assignments and each one's ordinal
+    within its expert among them (token-major, slot-minor)."""
+    oh = F.one_hot(idx.reshape(-1), E).to(torch.int32)
     csum = torch.cumsum(oh, dim=0, dtype=torch.int32)
-    pos = ((csum - oh) * oh).sum(-1, dtype=torch.int32).reshape(T, k)
+    return oh, ((csum - oh) * oh).sum(-1, dtype=torch.int32)
+
+
+def moe_route_ref(logits: torch.Tensor, k: int, capacity: int):
+    """logits: (T, E). Returns (weights (T,k) f32, idx (T,k) i32, pos (T,k)
+    i32 ordinal-within-expert, keep (T,k) bool). The experts and weights are
+    ``_top_k``'s."""
+    T, E = logits.shape
+    w, idx = _top_k(logits, k)
+    pos = _ordinals(idx, E)[1].reshape(T, k)
+    return w, idx.to(torch.int32), pos, pos < capacity
+
+
+def moe_route_lookback(logits: torch.Tensor, k: int, capacity: int, tile: int = 256):
+    """The CUDA kernel's dataflow (``csrc/moe_route.cu``) in plain torch,
+    with ``tile`` tokens per tile: each tile routes its tokens, ranks its
+    assignments within their experts and counts them per expert (its
+    aggregate, an E-vector); each tile's base per expert is the sum of the
+    aggregates of the tiles before it, from the walk back over them (which,
+    as if no tile before had finished, never meets a published prefix and
+    walks to the first tile); an ordinal is its expert's base plus its rank
+    in the tile. Same arguments and result as ``moe_route_ref``. Nothing on
+    the serve path calls it: the tests hold the dataflow against the JAX
+    kernel with it, on the CPU, where the CUDA kernel cannot run."""
+    T, E = logits.shape
+    w, idx = _top_k(logits, k)
+    ranks, aggs = [], []
+    for a in range(0, T, tile):
+        oh, rank = _ordinals(idx[a:a + tile], E)
+        ranks.append(rank)
+        aggs.append(oh.sum(0, dtype=torch.int32))
+    pos = []
+    for t, rank in enumerate(ranks):
+        base = torch.zeros(E, dtype=torch.int32, device=logits.device)
+        for i in range(t - 1, -1, -1):
+            base = aggs[i] + base
+        pos.append(base[idx[t * tile:(t + 1) * tile].reshape(-1)] + rank)
+    pos = (torch.cat(pos) if pos else torch.zeros(0, dtype=torch.int32)).reshape(T, k)
     return w, idx.to(torch.int32), pos, pos < capacity

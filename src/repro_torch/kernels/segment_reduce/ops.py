@@ -1,5 +1,4 @@
-"""Public segment_reduce wrappers: masking, identity padding, the flat
-rank-major layout.
+"""Public segment_reduce wrappers: masking, the flat rank-major layout.
 
 ``segment_reduce`` is the standalone inclusive-scan entry (kernel tests);
 ``segment_totals`` is the shuffle-stage ABI: the drop-in kernel version of
@@ -26,8 +25,8 @@ def _compute_dtype(dtype):
 
 
 def _scan(keys, valid, values, op, mask_value, block, seg):
-    """Shared core: mask invalid rows to ``mask_value``, pad to a block
-    multiple with the op identity, run the segmented-scan kernel.
+    """Shared core: mask invalid rows to ``mask_value`` and run the
+    segmented-scan kernel (which masks its own ragged tail: no padding).
     Returns (heads, scanned (N, D) in the compute dtype, squeeze)."""
     squeeze = values.ndim == 1
     v = values[:, None] if squeeze else values
@@ -37,14 +36,7 @@ def _scan(keys, valid, values, op, mask_value, block, seg):
     mv = torch.as_tensor(mask_value, device=v.device).to(ct)
     v = torch.where(valid[:, None], v.to(ct), mv)
 
-    N = v.shape[0]
-    ident = op_identity(op, ct)
-    pad = (-N) % block if N > block else 0
-    if pad:
-        v = torch.cat([v, v.new_full((pad, v.shape[1]), ident)])
-        hb = torch.cat([hb, hb.new_ones((pad,))])
-    out = segment_reduce_fwd(v.contiguous(), hb.contiguous(), op=op,
-                             block=block)[:N]
+    out = segment_reduce_fwd(v.contiguous(), hb.contiguous(), op=op, block=block)
     return heads, out, squeeze
 
 

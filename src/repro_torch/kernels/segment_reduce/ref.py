@@ -3,6 +3,7 @@
 Matches core/shuffle.segmented_reduce semantics: invalid rows are their own
 segments; output[i] = running reduction of row i's segment up to i.
 Identities come from ``op_identity`` (integer-safe), never float ±inf.
+``segment_scan_lookback`` mirrors the CUDA kernel's one-pass dataflow.
 """
 from __future__ import annotations
 
@@ -42,6 +43,40 @@ def segment_scan_plain(values: torch.Tensor, boundaries: torch.Tensor,
         f = torch.cat([f[:off], f[off:] | f[:-off]])
         off *= 2
     return v
+
+
+def segment_scan_lookback(values: torch.Tensor, boundaries: torch.Tensor,
+                          op: str = "sum", tile: int = 4096) -> torch.Tensor:
+    """The CUDA kernel's dataflow (``csrc/segment_reduce.cu``) in plain
+    torch, with ``tile`` rows per tile: each tile's own segmented scan, its
+    aggregate (the scan's last row) and whether it holds a boundary; then
+    each tile's exclusive prefix from the walk back over the aggregates of
+    the tiles before it, which stops at the first that holds a boundary
+    (under the segmented combine such an aggregate is its own inclusive
+    prefix) or at the first tile; then the tile's rows before its first
+    boundary combined with that prefix. The walk never meets a published
+    inclusive prefix here, as if no tile before had finished: the longest
+    walk the kernel can take. Same arguments and result as
+    ``segment_scan_plain``. Nothing on the main path calls it: the tests hold
+    the dataflow against the JAX kernel with it, on the CPU, where the CUDA
+    kernel cannot run."""
+    fn = _FNS[op]
+    n = values.shape[0]
+    starts = range(0, n, tile)
+    scans = [segment_scan_plain(values[a:a + tile], boundaries[a:a + tile], op) for a in starts]
+    aggs = [(sc[-1], bool(boundaries[a:a + tile].any())) for a, sc in zip(starts, scans)]
+    out = [scans[0]] if scans else [values.clone()]
+    for t in range(1, len(scans)):
+        pre = None
+        for i in range(t - 1, -1, -1):
+            v, f = aggs[i]
+            pre = v if pre is None else fn(v, pre)
+            if f:
+                break
+        b = boundaries[starts[t]:starts[t] + tile]
+        before = (torch.cumsum(b.to(torch.int32), 0) == 0)[:, None]
+        out.append(torch.where(before, fn(pre, scans[t]), scans[t]))
+    return torch.cat(out)
 
 
 def segment_reduce_ref(keys, valid, values, op: str = "sum", seg: int | None = None):
