@@ -14,16 +14,13 @@ Phases, all of them on every run (each prints its lines; any failure exits
 non-zero):
 
 1. build   — one ``nvcc`` per CUDA source (flash attention, SSD scan, MoE
-             router, segmented scan; ``sm_90a``, into
-             ``build/kernels/cuda``, where the port's loader finds them),
-             all started at once, while each Triton kernel (prefix scan,
-             bucket router) compiles at its first launch
-             (cached under ``build/kernels/triton`` unless TRITON_CACHE_DIR
-             says otherwise); then each CUDA kernel's first launch (flash
-             on both routes), ptxas' register and spill lines, and each
-             kernel's count of tensor-core instructions (``HGMMA``: wgmma,
-             ``HMMA``: mma.sync) in its SASS where the toolkit has
-             ``cuobjdump``;
+             router, the segmented and prefix scans, bucket router;
+             ``sm_90a``, into ``build/kernels/cuda``, where the port's
+             loader finds them), all started at once; then the registry's
+             capability probes, each kernel's first launch (flash on both
+             routes), ptxas' register and spill lines, and each kernel's
+             count of tensor-core instructions (``HGMMA``: wgmma, ``HMMA``:
+             mma.sync) in its SASS where the toolkit has ``cuobjdump``;
 2. edge    — every kernel against its plain version at edge shapes; the
              flash kernel over dtypes, GQA groups, head dims, masks and
              ragged lengths (in bf16 also lengths of several of its tiles,
@@ -34,8 +31,13 @@ non-zero):
              8192 (one tile, a tile's edge, many tiles), capacities, tied
              and non-finite logits; the segmented-scan kernel over D, dtypes,
              ops, N at its tile's edge and over 20000 tiles, and boundaries
-             only at row 0, at every row or at random; each router and
-             segmented-scan case launched back to back, every result held;
+             only at row 0, at every row or at random; the prefix scan over
+             ops, int32, bool, integer-valued f32 and f32 with a NaN row,
+             both directions, N at its tile's edge and over 20000 tiles;
+             the bucket router over P up to 16384, sentinel rows, all rows
+             to one bucket (also over 20000 tiles), capacities below the
+             demand, ragged N and N = 0; each look-back kernel's case
+             launched back to back, every result held;
 3. hybrid  — the hybrid job, twice with ``ignis.kernels=auto`` (launch
              counters reset before each run) and once with ``off``: branch A
              ``map → reduceByKey(add)`` and ``reduceByKey(max)`` (PSRS sort
@@ -50,15 +52,19 @@ non-zero):
              row in the order it came back, no fallback, no overflow retry
              and no new wide plan on the second run, every
              ``segment_totals`` call on the path launching the CUDA
-             segmented scan once (the Triton scan is gone). Each run also reports
+             segmented scan and prefix scan once, every kernel-routed
+             exchange the CUDA bucket router, and no Triton module left in
+             the port. Each run also reports
              the wall time spent in ``to_host`` (the driver-side conversion
              of collected blocks to row trees) and in autotune sweeps. Then
              each hybrid kernel against its plain version on the card at
              the main path's largest shape (integers bit for bit; float sums
              within a stated tolerance), timed with CUDA events and with
-             ``torch.profiler`` (device time; the segmented scan must list
-             one kernel and its memset per call) beside its bound and,
-             where one exists, the library call;
+             ``torch.profiler`` (device time; each must list one kernel and
+             its memset per call) beside its bound and, where one exists,
+             the library call; the prefix scan also from the tail through
+             its wrapper and at op sum beside ``torch.cumsum``, the bucket
+             router also by its wrapper's host µs per call;
 4. qwen,   — after the previous phase's memory is released, each model
    mamba,    (random bf16 weights from a seeded generator) serves 8 requests
    mixtral   of 512–2048 prompt tokens x 32 new tokens on 4 slots of a
@@ -191,6 +197,8 @@ class Spans:
 TO_HOST, SWEEPS = Spans(), Spans()
 #: ``segment_totals`` calls with rows, on the path and in autotune sweeps
 SEG_CALLS = {"path": 0, "sweep": 0}
+#: kernel-routed exchanges (``bucket_route`` calls with rows), likewise
+ROUTE_CALLS = {"path": 0, "sweep": 0}
 
 
 def instrument():
@@ -198,8 +206,10 @@ def instrument():
     driver boundary of collect: blocks to host row trees) after the device
     has finished the work queued before it, and the kernel registry's
     sweeping blocks (capability probes and autotune sweeps); and count the
-    ``segment_totals`` calls with rows (``SEG_CALLS``): each one on the path
-    must launch the segmented-scan kernel once."""
+    ``segment_totals`` calls with rows (``SEG_CALLS``), each of which on the
+    path must launch the segmented scan and the prefix scan once, and the
+    kernel-routed exchanges (``ROUTE_CALLS``, the ``bucket_route`` calls the
+    shuffle's router makes), each of which must launch the bucket router."""
     import contextlib
 
     import torch
@@ -207,16 +217,19 @@ def instrument():
     from repro_torch import kernels
     from repro_torch.core import dataframe
     from repro_torch.kernels import registry
+    from repro_torch.kernels.moe_route import ops as route_ops
     from repro_torch.kernels.segment_reduce import ops as seg_ops
 
-    totals = seg_ops.segment_totals
+    def counting(fn, calls):
+        def counted(first, *a, **kw):
+            if first.shape[0]:
+                calls["sweep" if getattr(kernels._sweep, "on", False) else "path"] += 1
+            return fn(first, *a, **kw)
+        return counted
 
-    def counted_totals(keys, *a, **kw):
-        if keys.shape[0]:
-            SEG_CALLS["sweep" if getattr(kernels._sweep, "on", False) else "path"] += 1
-        return totals(keys, *a, **kw)
-
-    seg_ops.segment_totals = counted_totals
+    seg_ops.segment_totals = counting(seg_ops.segment_totals, SEG_CALLS)
+    # the shuffle's router looks the function up when it builds a plan, after this
+    route_ops.bucket_route = counting(route_ops.bucket_route, ROUTE_CALLS)
 
     to_host, sweeping = dataframe.to_host, registry.sweeping
 
@@ -322,12 +335,14 @@ def main_path(args):
     w = worker("auto")
     frames = hybrid(w, words, marks, dim_keys, dim_vals)
     results, launches = [], []
-    check(importlib.util.find_spec("repro_torch.kernels.segment_reduce._triton") is None,
-          "the Triton segmented scan is still in the port")
+    for pkg in ("segment_reduce", "ssd_scan", "moe_route"):
+        check(importlib.util.find_spec(f"repro_torch.kernels.{pkg}._triton") is None,
+              f"a Triton kernel is still in the port's {pkg}")
     for run in (1, 2):
         before = w.metrics()
         K.reset_launches()
         SEG_CALLS.update(path=0, sweep=0)
+        ROUTE_CALLS.update(path=0, sweep=0)
         results.append(run_job(frames, f"auto run {run}"))
         fns = K.launch_counters()
         launches.append({k: (fns[k].launches, fns[k].tune_launches,
@@ -336,12 +351,16 @@ def main_path(args):
         log(f"main[auto run {run}]: launches "
             f"{ {k: v[0] for k, v in launches[-1].items()} } "
             f"(autotune sweeps apart: { {k: v[1] for k, v in launches[-1].items()} }); "
-            f"segment_totals calls {SEG_CALLS}")
+            f"segment_totals calls {SEG_CALLS}, routed exchanges {ROUTE_CALLS}")
         for k, (cnt, _t, _g) in launches[-1].items():
             check(cnt > 0, f"run {run}: kernel {k} was never launched")
-        check(fns["segment_reduce"].launches == SEG_CALLS["path"],
-              f"run {run}: {SEG_CALLS['path']} segment_totals calls on the path against "
-              f"{fns['segment_reduce'].launches} segmented-scan launches")
+        for k in ("segment_reduce", "prefix_scan"):
+            check(fns[k].launches == SEG_CALLS["path"],
+                  f"run {run}: {SEG_CALLS['path']} segment_totals calls on the path against "
+                  f"{fns[k].launches} {k} launches")
+        check(fns["bucket_route"].launches == ROUTE_CALLS["path"],
+              f"run {run}: {ROUTE_CALLS['path']} routed exchanges on the path against "
+              f"{fns['bucket_route'].launches} bucket_route launches")
         check(after["kernels"]["kernel_fallbacks"] == 0, "a kernel fell back")
         if run == 2:
             d_retry = (after["shuffle"]["overflow_retries"]
@@ -606,6 +625,193 @@ def segment_edge_checks():
         f"launched {BACK_TO_BACK} times back to back: OK")
 
 
+def same_bits(a, b, nan_rows=False) -> bool:
+    """``a`` equals ``b`` bit for bit (an f32 NaN's payload and a zero's sign
+    count); with ``nan_rows``, NaN at the same rows and the other rows bit
+    for bit (a sum's NaN is whichever the hardware's add makes)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    if nan_rows:
+        na, nb = torch.isnan(a), torch.isnan(b)
+        return torch.equal(na, nb) and torch.equal(a[~na].view(torch.int32),
+                                                   b[~nb].view(torch.int32))
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+#: a random f32 running sum's error depends on the order of its adds, and
+#: grows with N: the kernel adds within a tile by a tree and across tiles by
+#: the carry, torch.cumsum in CUB's order, so each is held against the scan in
+#: float64, the kernel to this many times torch.cumsum's own error
+F32_SUM_ERR_RATIO = 2.0
+#: the prefix scan's inputs: int32, bool, integer-valued f32, and
+#: integer-valued f32 with one NaN row (``PREFIX_NAN_AT``) and -0 rows
+PREFIX_KINDS = ("int32", "bool", "f32", "f32-nan")
+#: where the NaN row goes: the first row, mid-tile, a tile's first row, the last
+PREFIX_NAN_AT = ("first", "mid", "edge", "last")
+
+
+def prefix_edge_checks():
+    """The prefix-scan kernel through its wrapper (``ops.prefix_scan``, which
+    scans bool as int32, and passes ``reverse`` to the kernel) against
+    ``prefix_scan_ref`` (torch.cumsum, cummax, cummin) on the card: every op
+    x ``PREFIX_KINDS`` x both directions x N a tile's rows - 1, a tile, + 1,
+    three tiles + 1 (block 256: tiles of 4096 rows) and over 20000 tiles
+    (block 32: tiles of 512 rows); the NaN kind once for each of
+    ``PREFIX_NAN_AT``. Max and min bit for bit, NaN payloads and zero signs
+    included; sums bit for bit (integer-valued, every partial sum below
+    2^24), with NaN at the same rows where there is a NaN row. Random f32
+    sums, whose rounding depends on the order of the adds, against the scan
+    in float64: the kernel's largest error at most ``F32_SUM_ERR_RATIO``
+    times ``torch.cumsum``'s in float32 on the same input (or 1e-4). Each
+    case ``BACK_TO_BACK`` launches with no synchronize between them, every
+    result held."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ops import prefix_scan
+    from repro_torch.kernels.ssd_scan.prefix import prefix_scan_fwd, rows_per_tile
+    from repro_torch.kernels.ssd_scan.ref import prefix_scan_ref
+
+    r = _Rand(9)
+    n_cases, bad = 0, []
+    tile, many_tile = rows_per_tile(256), rows_per_tile(32)
+    many = many_tile * 20000 + 1
+
+    def inputs(kind, n):
+        v = r.ints(n, -50, 50)
+        if kind == "int32":
+            return [("", v)]
+        if kind == "bool":
+            return [("", v > 20)]
+        v = v.float()
+        if kind == "f32":
+            return [("", v)]
+        v[v == 0] = -0.0
+        out = []
+        for at in PREFIX_NAN_AT:
+            w = v.clone()
+            w[{"first": 0, "mid": min(tile // 2, n - 1), "edge": min(tile, n - 1),
+               "last": n - 1}[at]] = float("nan")
+            out.append((f" NaN {at}", w))
+        return out
+
+    def run(x, op, block, rev, what, hold):
+        before = prefix_scan_fwd.launches
+        outs = [prefix_scan(x, op=op, block=block, reverse=rev) for _ in range(BACK_TO_BACK)]
+        ref = prefix_scan_ref(x, op, rev)
+        if prefix_scan_fwd.launches != before + BACK_TO_BACK:
+            bad.append(f"{what}: not counted as {BACK_TO_BACK} launches")
+        for i, o in enumerate(outs):
+            if not hold(o, ref):
+                bad.append(f"{what}, launch {i + 1}: max abs err {max_err(o, ref)}")
+
+    for op, kind, rev in itertools.product(("sum", "max", "min"), PREFIX_KINDS, (False, True)):
+        for n, block in ((tile - 1, 256), (tile, 256), (tile + 1, 256), (3 * tile + 1, 256),
+                         (many, 32)):
+            for note, x in inputs(kind, n):
+                nan_rows = op == "sum" and bool(note)
+                run(x, op, block, rev, f"prefix_scan N={n} {kind}{note} {op} reverse={rev} "
+                    f"block={block}", lambda a, b: same_bits(a, b, nan_rows))
+                n_cases += 1
+    worst = 0.0
+    for n, rev in itertools.product((4097, 100003, 3000001), (False, True)):
+        x = r.rand(n) - 0.5
+        exact64 = prefix_scan_ref(x.double(), "sum", rev)
+        lib_err = max_err(prefix_scan_ref(x, "sum", rev), exact64)
+        worst = max(worst, max_err(prefix_scan(x, op="sum", block=256, reverse=rev), exact64)
+                    / max(lib_err, 1e-30))
+        run(x, "sum", 256, rev, f"prefix_scan random f32 sums N={n} reverse={rev} (torch.cumsum "
+            f"{lib_err} from float64)",
+            lambda a, b: max_err(a, exact64) <= max(F32_SUM_ERR_RATIO * lib_err, 1e-4))
+        n_cases += 1
+    torch.cuda.synchronize()
+    check(not bad, f"prefix_scan edge checks: {len(bad)} failed of {n_cases}: {bad[:6]}")
+    log(f"edge: prefix_scan kernel — {n_cases} cases (sum/max/min x {PREFIX_KINDS} (a NaN row "
+        f"at {PREFIX_NAN_AT}, -0 rows) x reverse x N a tile -1, a tile, +1, 3 tiles + 1 and "
+        f"{-(-many // many_tile)} tiles, bit for bit; random f32 sums from float64 at most "
+        f"{worst:.3f} times torch.cumsum's error, bound {F32_SUM_ERR_RATIO}), each launched "
+        f"{BACK_TO_BACK} times back to back through the wrapper: OK")
+
+
+#: the bucket router's bucket counts: up to the hybrid join's P = p^2 at
+#: p = 64, and 16384 (p = 128), whose one warp's table passes 48 KB
+ROUTE_EDGE_P = (4, 9, 64, 256, 1024, 4096, 16384)
+
+
+def route_edge_checks():
+    """The bucket-router kernel (``bucket_route_fwd``) against
+    ``bucket_route_ref`` (the stable argsort) on the card: P in
+    ``ROUTE_EDGE_P``, N of 1, a tile's rows - 1, a tile (one tile, no
+    look-back), + 1 and three tiles + 1 at block 512, destinations random,
+    a fifth of them the sentinel P, or all to one bucket, with a capacity
+    below the fullest bucket's demand and one above every bucket's; all rows
+    to one bucket over 20000 tiles at P = 64 (block 32); N = 0 through the
+    wrapper. pos, keep and counts bit for bit. Each case ``BACK_TO_BACK``
+    launches with no synchronize between them, every result held."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.moe_route import route
+    from repro_torch.kernels.moe_route.ops import bucket_route
+    from repro_torch.kernels.moe_route.ref import bucket_route_ref
+
+    r = _Rand(10)
+    n_cases, bad, dropped = 0, [], 0
+
+    def dests(kind, n, p):
+        if kind == "one":
+            return torch.full((n,), p // 2, dtype=torch.int32, device=r.dev)
+        d = r.ints(n, 0, p)
+        if kind == "sentinel":
+            d[r.rand(n) < 0.2] = p
+        return d
+
+    def run(d, p, C, block, what):
+        before = route.bucket_route_fwd.launches
+        outs = [route.bucket_route_fwd(d, p, C, block=block) for _ in range(BACK_TO_BACK)]
+        ref = bucket_route_ref(d, p, C)
+        if route.bucket_route_fwd.launches != before + BACK_TO_BACK:
+            bad.append(f"{what}: not counted as {BACK_TO_BACK} launches")
+        for i, got in enumerate(outs):
+            for a, b, nm in zip(got, ref, ("pos", "keep", "counts")):
+                if not same_bits(a, b):
+                    bad.append(f"{what}, launch {i + 1}: {nm} differs")
+        return not bool(ref[1].all())
+
+    for p, kind in itertools.product(ROUTE_EDGE_P, ("random", "sentinel", "one")):
+        tile = route.geometry(p, 512)[1]
+        for n in (1, tile - 1, tile, tile + 1, 3 * tile + 1):
+            d = dests(kind, n, p)
+            for C in (max(1, n // p // 2), n + 1):
+                dropped += run(d, p, C, 512, f"bucket_route N={n} P={p} C={C} {kind}")
+                n_cases += 1
+    tile = route.geometry(64, 32)[1]
+    n = tile * 20000 + 1
+    dropped += run(dests("one", n, 64), 64, n // 3, 32,
+                   f"bucket_route N={n} P=64 all to one bucket over 20001 tiles")
+    n_cases += 1
+    z = torch.zeros(0, dtype=torch.int32, device=r.dev)
+    for got in (bucket_route(z, 64, 5), route.bucket_route_fwd(z, 64, 5)):
+        if not (got[0].shape == (0,) and got[1].shape == (0,)
+                and torch.equal(got[2], torch.zeros(64, dtype=torch.int32, device=r.dev))):
+            bad.append("bucket_route N=0")
+    n_cases += 1
+    torch.cuda.synchronize()
+    check(not bad, f"bucket_route edge checks: {len(bad)} failed of {n_cases}: {bad[:6]}")
+    check(dropped > 0, "bucket_route edge checks: no case dropped a row")
+    log(f"edge: bucket_route kernel — {n_cases} cases (P {ROUTE_EDGE_P} x random, a fifth to "
+        f"the sentinel, all to one bucket x N 1, a tile -1, a tile, +1, 3 tiles + 1 x C below "
+        f"and above the demand ({dropped} dropping rows); all rows to one bucket over 20001 "
+        f"tiles at P = 64; N = 0): pos, keep and counts bit for bit, each launched "
+        f"{BACK_TO_BACK} times back to back: OK")
+
+
 def kernel_checks(main_launches, reps: int):
     """Each kernel against its plain version at the main path's largest
     shape, then timed beside its bound, its plain version and the library
@@ -616,6 +822,7 @@ def kernel_checks(main_launches, reps: int):
     from repro_torch.kernels.moe_route.route import bucket_route_fwd
     from repro_torch.kernels.segment_reduce.ref import segment_scan_plain
     from repro_torch.kernels.segment_reduce.segment_reduce import segment_reduce_fwd
+    from repro_torch.kernels.ssd_scan.ops import prefix_scan
     from repro_torch.kernels.ssd_scan.prefix import prefix_scan_fwd
     from repro_torch.kernels.ssd_scan.ref import prefix_scan_ref
 
@@ -641,7 +848,7 @@ def kernel_checks(main_launches, reps: int):
     best = min(ms_by_block, key=ms_by_block.get)
     nbytes = 2 * n * d * 4 + n  # values in, scan out, flags in
     by_ms, per_call = device_profile(lambda: fwd(v, hb, op=op, block=best))
-    check(set(per_call) == {"seg_scan_kernel", "Memset"}
+    check(set(per_call) == {"scan_kernel", "Memset"}
           and all(c == 1 for c in per_call.values()),
           f"segment_reduce: the profiler lists {per_call} launches per call, not one "
           f"kernel and its memset")
@@ -656,55 +863,96 @@ def kernel_checks(main_launches, reps: int):
         ms_by_block=ms_by_block, shape=[n, d], op=op))
     del v, hb, ref, got
 
-    (n,), op = largest("prefix_scan")
+    (n,), op, _rev = largest("prefix_scan")
     x = r.ints(n, 0, n)
     fwd, plain = prefix_scan_fwd, prefix_scan_ref
-    got, ref = fwd(x, op=op, block=512), plain(x, op)
-    exact(got, ref, f"prefix_scan {n} {op}")
+    ref = plain(x, op)
+    ms_by_block, err = {}, 0.0
+    for block in SEG_BLOCKS:  # segment_totals passes its tuned block through
+        got = fwd(x, op=op, block=block)
+        check(same_bits(got, ref), f"prefix_scan {n} {op} block={block}: differs")
+        err = max(err, max_err(got, ref))
+        ms_by_block[block] = time_ms(lambda: fwd(x, op=op, block=block), reps)
+    best = min(ms_by_block, key=ms_by_block.get)
+    by_ms, per_call = device_profile(lambda: fwd(x, op=op, block=best))
+    rev_ms, rev_call = device_profile(lambda: fwd(x, op=op, block=best, reverse=True))
+    for what, calls in (("forward", per_call), ("reverse", rev_call)):
+        check(set(calls) == {"scan_kernel", "Memset"}
+              and all(c == 1 for c in calls.values()),
+              f"prefix_scan ({what}): the profiler lists {calls} launches per call, not one "
+              f"kernel and its memset")
+    got = prefix_scan(x, op=op, block=best, reverse=True)  # as segment_totals calls it
+    check(same_bits(got, plain(x, op, reverse=True)), f"prefix_scan {n} {op} reverse: differs")
+    got = fwd(x, op="sum", block=best)
+    check(same_bits(got, torch.cumsum(x, 0, dtype=x.dtype)), f"prefix_scan {n} sum: differs")
     lib = {"min": lambda: torch.cummin(x, 0), "max": lambda: torch.cummax(x, 0),
            "sum": lambda: torch.cumsum(x, 0, dtype=x.dtype)}[op]
     rows.append(dict(
-        name="prefix_scan", route="triton",
-        source="src/repro_torch/kernels/ssd_scan/prefix.py",
+        name="prefix_scan", route="cuda", source="src/repro_torch/csrc/segment_reduce.cu",
         replaces="src/repro/kernels/ssd_scan/prefix.py:54",
-        launches=main_launches["prefix_scan"][0], max_abs_err=max_err(got, ref),
-        ms=time_ms(lambda: fwd(x, op=op, block=512), reps),
+        launches=main_launches["prefix_scan"][0], max_abs_err=err, ms=ms_by_block[best],
         plain_ms=time_ms(lambda: plain(x, op), max(reps // 4, 2)),
         bound_ms=2 * n * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=time_ms(lib, max(reps // 4, 2)),
-        device_ms=device_ms(lambda: fwd(x, op=op, block=512)), shape=[n], op=op))
+        device_ms=round(sum(by_ms.values()), 6), device_ms_by_kernel=by_ms,
+        launches_per_call=per_call, block=best, ms_by_block=ms_by_block,
+        reverse_device_ms=round(sum(rev_ms.values()), 6),
+        wrapper_reverse_ms=time_ms(lambda: prefix_scan(x, op=op, block=best, reverse=True), reps),
+        sum_ms=time_ms(lambda: fwd(x, op="sum", block=best), reps),
+        cumsum_ms=time_ms(lambda: torch.cumsum(x, 0, dtype=x.dtype), reps),
+        shape=[n], op=op))
+    del x, ref, got
 
     (n,), P, C = largest("bucket_route")
     dest = r.ints(n, 0, P)
     fwd, plain = bucket_route_fwd, bucket_route_ref
-    got, ref = fwd(dest, P, C, block=128), plain(dest, P, C)
-    for a, b, nm in zip(got, ref, ("pos", "keep", "counts")):
-        exact(a, b, f"bucket_route {n} P={P} C={C} {nm}")
+    ref = plain(dest, P, C)
+    # device time by block: CUDA events around back-to-back calls time the
+    # host's issue rate here, not the kernel (as for the MoE router)
+    ms_by_block = {}
+    for block in SEG_BLOCKS:  # as the autotune sweeps them
+        got = fwd(dest, P, C, block=block)
+        for a, b, nm in zip(got, ref, ("pos", "keep", "counts")):
+            exact(a, b, f"bucket_route {n} P={P} C={C} block={block} {nm}")
+        ms_by_block[block] = device_ms(lambda: fwd(dest, P, C, block=block), 50)
+    check(None not in ms_by_block.values(), "bucket_route: the profiler saw no device time")
+    best = min(ms_by_block, key=ms_by_block.get)
+    call = lambda: fwd(dest, P, C, block=best)  # noqa: E731
+    by_ms, per_call = device_profile(call, 50)
+    check(set(per_call) == {"bucket_route_kernel", "Memset"}
+          and all(c == 1 for c in per_call.values()),
+          f"bucket_route: the profiler lists {per_call} launches per call, not one kernel and "
+          f"its memset")
     rows.append(dict(
-        name="bucket_route", route="triton",
-        source="src/repro_torch/kernels/moe_route/route.py",
+        name="bucket_route", route="cuda", source="src/repro_torch/csrc/bucket_route.cu",
         replaces="src/repro/kernels/moe_route/route.py:50",
         launches=main_launches["bucket_route"][0],
-        max_abs_err=max(max_err(a, b) for a, b in zip(got, ref)),
-        ms=time_ms(lambda: fwd(dest, P, C, block=128), reps),
-        plain_ms=time_ms(lambda: plain(dest, P, C), reps),
+        max_abs_err=max(max_err(a, b) for a, b in zip(got, ref)), ms=ms_by_block[best],
+        event_ms=time_ms(call, reps * 10), plain_ms=time_ms(lambda: plain(dest, P, C), reps),
         bound_ms=(n * 4 + n * 4 + n + P * 4) / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes", library_ms=None,
-        device_ms=device_ms(lambda: fwd(dest, P, C, block=128)), shape=[n], p=P, capacity=C))
-
+        bound_by="bytes", library_ms=None, device_ms=round(sum(by_ms.values()), 6),
+        device_ms_by_kernel=by_ms, launches_per_call=per_call, block=best,
+        ms_by_block=ms_by_block, host_us=host_us(call), shape=[n], p=P, capacity=C))
     for row in rows:
         lib = row["library_ms"]
         earlier = RECORDED_EARLIER_MS.get(row["name"])
         log(f"kernel {row['name']}: shape {row['shape']} launches {row['launches']} "
-            f"max_abs_err {row['max_abs_err']} | {row['ms']:.4f} ms (CUDA events), device "
-            f"{row['device_ms']} ms (torch.profiler)"
+            f"max_abs_err {row['max_abs_err']} | "
+            + (f"{row['ms']:.4f} ms (CUDA events), device {row['device_ms']} ms (torch.profiler)"
+               if "event_ms" not in row else
+               f"{row['ms']:.6f} ms device (torch.profiler; CUDA events over back-to-back "
+               f"calls, the host's issue rate here: {row['event_ms']:.4f} ms)")
             + (f" (earlier design {earlier} ms as recorded, not measured here)" if earlier else "")
             + f" vs bound {row['bound_ms']:.4f} ms (bytes / 3.35 TB/s) | plain "
             f"{row['plain_ms']:.4f} ms | library "
             f"{'none' if lib is None else f'{lib:.4f} ms'}"
-            + (f"; block {row['block']} of {row['ms_by_block']}; device ms per launch "
+            + (f"; block {row['block']} of {row['ms_by_block']} ms; device ms per launch "
                f"{row['device_ms_by_kernel']}, launches per call {row['launches_per_call']}"
-               if "launches_per_call" in row else ""))
+               if "launches_per_call" in row else "")
+            + (f"; reverse: device {row['reverse_device_ms']} ms, through the wrapper "
+               f"{row['wrapper_reverse_ms']:.4f} ms; sum {row['sum_ms']:.4f} ms against "
+               f"torch.cumsum {row['cumsum_ms']:.4f} ms" if "sum_ms" in row else "")
+            + (f"; wrapper host {row['host_us']:.2f} us per call" if "host_us" in row else ""))
     return rows
 
 
@@ -753,10 +1001,12 @@ PATH_VARIANT = {"flash_attention": "wgmma"}
 #: SSD scan: their f32-FMA designs, by this script; the segmented scan and
 #: the router: their Triton two-pass and one-block designs, by
 #: tools/time_lookback_kernels.py, CUDA events and torch.profiler device
-#: time respectively); logged beside the new time for a reader, never
-#: measured here and never put in the kernels line
+#: time respectively; the prefix scan and the bucket router: their Triton
+#: designs, by this script, CUDA events); logged beside the new time for a
+#: reader, never measured here and never put in the kernels line
 RECORDED_EARLIER_MS = {"flash_attention": 1.6673, "ssd_scan": 1.6210,
-                       "segment_reduce": 0.9309, "moe_route": 0.0266}
+                       "segment_reduce": 0.9309, "moe_route": 0.0266,
+                       "prefix_scan": 0.7313, "bucket_route": 0.1814}
 #: Mixtral-8x7B's layers served: all 32 are 46.7e9 parameters, 93.4 GB in
 #: bf16, above the card's 80 GB; 24 are 35.1e9 (65.6 GiB)
 MIXTRAL_LAYERS = 24
@@ -1576,7 +1826,8 @@ def flash_row(launches, reps: int):
     return row
 
 
-CUDA_SOURCES = ("flash_attention", "ssd_scan", "moe_route", "segment_reduce")
+#: one library each; ``segment_reduce`` holds the segmented scan and the prefix scan
+CUDA_SOURCES = ("flash_attention", "ssd_scan", "moe_route", "segment_reduce", "bucket_route")
 
 
 def _demangled(names, bin_dir):
@@ -1632,10 +1883,10 @@ def tensor_core_counts():
 
 def build():
     """Start one ``nvcc`` per CUDA source at once, with the port's flags and
-    into the library paths its loader reads (``kernels._cuda``), compile the
-    Triton kernels meanwhile, then launch each CUDA kernel once (the loader
-    finds the library built) and print what ptxas said (registers, spills)
-    of it."""
+    into the library paths its loader reads (``kernels._cuda``), then run
+    the registry's capability probes and launch each kernel once (the loader
+    finds the library built), and print what ptxas said (registers, spills)
+    of each."""
     import torch
 
     from repro_torch.kernels import _cuda, registry
@@ -1652,14 +1903,6 @@ def build():
             cmd = [_cuda.nvcc(), *_cuda.NVCC_FLAGS, "-o", str(tmp), str(_cuda.CSRC / f"{name}.cu")]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
                                             stderr=subprocess.PIPE, text=True), tmp, out)
-        for name, probe in registry._PROBES.items():
-            if name in CUDA_SOURCES:
-                continue  # launched below, once its library is built
-            t1 = time.perf_counter()
-            probe("cuda")
-            torch.cuda.synchronize()
-            log(f"build: {name} first launch (Triton compile) "
-                f"{time.perf_counter() - t1:.2f} s")
         for name, (proc, tmp, out) in procs.items():
             logs[name] = proc.communicate()[1]
             if proc.returncode != 0:
@@ -1673,14 +1916,15 @@ def build():
                 proc.wait()
     log(f"build: {len(procs)} CUDA libraries "
         f"{[_cuda.library_path(n).name for n in CUDA_SOURCES]} built by parallel nvcc runs "
-        f"in {time.perf_counter() - t0:.2f} s (wall, beside the Triton builds)")
-    for name, probe in registry._PROBES.items():
-        if name in CUDA_SOURCES:
-            probe("cuda")
+        f"in {time.perf_counter() - t0:.2f} s (wall)")
+    for probe in registry._PROBES.values():  # each reaches its CUDA kernel
+        probe("cuda")
 
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
     from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
+    from repro_torch.kernels.moe_route.route import bucket_route_fwd
     from repro_torch.kernels.segment_reduce.segment_reduce import segment_reduce_fwd
+    from repro_torch.kernels.ssd_scan.prefix import prefix_scan_fwd
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
 
     x = torch.zeros((1, 1, 1, 64), device="cuda")
@@ -1694,8 +1938,13 @@ def build():
     moe_route_fwd(torch.zeros((300, 4), device="cuda"), 2, 2)  # two tiles: the look-back
     segment_reduce_fwd(torch.zeros((5000, 1), dtype=torch.int32, device="cuda"),
                        torch.ones(5000, dtype=torch.bool, device="cuda"))
+    for rev in (False, True):  # two tiles: the look-back
+        prefix_scan_fwd(torch.zeros(9000, dtype=torch.int32, device="cuda"), "min", 512, rev)
+    bucket_route_fwd(torch.zeros(3, dtype=torch.int32, device="cuda"), 4, 2)
+    bucket_route_fwd(torch.zeros(5000, dtype=torch.int32, device="cuda"), 4, 2)  # two tiles
     torch.cuda.synchronize()
-    log("build: first launches of " + ", ".join(CUDA_SOURCES) + ": OK")
+    log("build: first launches of " + ", ".join(CUDA_SOURCES) + " (and the prefix scan in "
+        "segment_reduce's library): OK")
     for name in CUDA_SOURCES:
         for line in logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -1731,6 +1980,8 @@ def main() -> int:
         build()
         edge_checks()
         segment_edge_checks()
+        prefix_edge_checks()
+        route_edge_checks()
         flash_edge_checks()
         ssd_edge_checks()
         moe_edge_checks()

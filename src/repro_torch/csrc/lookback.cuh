@@ -14,6 +14,13 @@
 // needs nothing before it (the first, or a segmented tile whose aggregate
 // holds a boundary) publishes its aggregate as its prefix at once.
 //
+// The prefix scan's chain, which no boundary ends, walks with a whole warp
+// (warp_exclusive_prefix): with some 400 tiles in flight at once, a tile's
+// nearest published prefix can lie many tiles back, and one thread reading
+// one word per round trip to L2 would hold up every tile behind it; 32
+// lanes read 32 predecessors' words a round trip. (The bucket router's many
+// chains, one thread each, walked faster so than a warp at a time.)
+//
 // The words and a tile counter live in scratch that the entry point zeroes
 // with cudaMemsetAsync on the kernel's stream before each launch. A block
 // takes its tile from the counter, not from blockIdx: tiles are then handed
@@ -69,6 +76,44 @@ __device__ uint32_t exclusive_prefix(const uint64_t* words, long self, long step
     const uint32_t bits = static_cast<uint32_t>(x);
     acc = i == 1 ? bits : op(bits, acc);
     if (static_cast<uint32_t>(x >> 32) & kPrefix) break;
+  }
+  return acc;
+}
+
+// exclusive_prefix walked by a whole warp, which must call it together (all
+// 32 lanes, converged): lane l reads the word of the predecessor at distance
+// base + l + 1, in windows of 32, and waits for it; the window's values from
+// the nearest published prefix down to the tile's neighbour combine,
+// earliest first, by an ordered tree over the lanes. `ident` is the bits of
+// op's identity (what a lane past the prefix, or past the first tile,
+// contributes). Returns the exclusive prefix on every lane.
+template <class Op>
+__device__ uint32_t warp_exclusive_prefix(const uint64_t* words, long self, long step,
+                                          long preds, Op op, uint32_t ident) {
+  const int lane = threadIdx.x & 31;
+  uint32_t acc = ident;  // the windows walked so far, all later than the next
+  for (long base = 0; base < preds; base += 32) {
+    const long i = base + lane + 1;
+    uint64_t x = 0;
+    if (i <= preds) {
+      const uint64_t* w = words + (self - i * step);
+      x = load_acquire(w);
+      while ((x >> 32) == 0) {
+        __nanosleep(32);
+        x = load_acquire(w);
+      }
+    }
+    const unsigned prefix = __ballot_sync(0xffffffffu, static_cast<uint32_t>(x >> 32) & kPrefix);
+    const int stop = prefix ? __ffs(prefix) - 1 : 31;  // the nearest published prefix
+    uint32_t v = i <= preds && lane <= stop ? static_cast<uint32_t>(x) : ident;
+    // lane l + off holds an earlier span than lane l
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const uint32_t o = __shfl_down_sync(0xffffffffu, v, off);
+      if (lane + off < 32) v = op(o, v);
+    }
+    acc = op(__shfl_sync(0xffffffffu, v, 0), acc);
+    if (prefix) break;
   }
   return acc;
 }

@@ -1,25 +1,26 @@
 """Hand-written Hopper kernels: the shuffle engine's wide stages and the
 model zoo's attention, SSD scan and MoE router.
 
-Each package holds the kernel (Triton ``triton.jit`` bodies in
-``_triton.py``, or CUDA C++ under ``src/repro_torch/csrc`` built by
-``_cuda.py``; either is built at the first CUDA launch), its plain torch
-version (``ref.py``) and the wrapper (``ops.py``) that pads, masks and picks
-between them by the device of the tensor it is given:
+Each package holds the wrapper of its kernels (CUDA C++ under
+``src/repro_torch/csrc``, built by ``_cuda.py`` at the first CUDA launch),
+their plain torch versions (``ref.py``) and the public functions
+(``ops.py``) that mask and pick between them by the device of the tensor
+they are given:
 
-  ssd_scan        — ``prefix_scan``: inclusive 1-D sum/min/max scan (the
-                    suffix-min of ``segment_totals``' last-row gather);
-                    ``ssd_scan``: the Mamba-2 SSD chunk scan (CUDA C++), the
-                    SSM mixer's prefill
+  ssd_scan        — ``prefix_scan``: inclusive 1-D sum/min/max scan, forward
+                    or from the tail (the suffix-min of ``segment_totals``'
+                    last-row gather; one pass with a decoupled look-back, in
+                    ``csrc/segment_reduce.cu``); ``ssd_scan``: the Mamba-2
+                    SSD chunk scan, the SSM mixer's prefill
   segment_reduce  — ``segment_reduce`` / ``segment_totals``: inclusive
-                    segmented scan (CUDA C++, one pass with a decoupled
-                    look-back), the reduceByKey post hook
+                    segmented scan (one pass with a decoupled look-back), the
+                    reduceByKey post hook
   moe_route       — ``bucket_route``: capacity ordinals for the hash
                     exchange of partitionBy / join; ``moe_route``: softmax,
-                    top-k and expert capacity ordinals (CUDA C++, one pass
-                    with a decoupled look-back), the MoE FFN's router
-  flash_attention — ``flash_attention``: online-softmax attention forward
-                    (CUDA C++), the transformers' prefill attention
+                    top-k and expert capacity ordinals; both one pass with a
+                    decoupled look-back, the second the MoE FFN's router
+  flash_attention — ``flash_attention``: online-softmax attention forward,
+                    the transformers' prefill attention
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises — never the plain version. Each kernel's
@@ -36,8 +37,6 @@ engine (core/shuffle_plan.py) consults per wide node.
 from __future__ import annotations
 
 import contextlib
-import importlib
-import os
 import pathlib
 import threading
 
@@ -93,23 +92,14 @@ def require_cuda(*tensors) -> None:
             raise ValueError("kernel operands must be contiguous")
 
 
-def triton_kernels(module: str):
-    """Import a kernel package's ``_triton`` module (its ``triton.jit``
-    bodies) for a launch, pointing Triton's cache into ``BUILD_DIR`` unless
-    the caller chose another place. Only a CUDA launch calls this, so
-    importing the port never imports Triton."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    return importlib.import_module(module)
-
-
 def next_pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def tile(block: int, n: int) -> int:
-    """Rows per program: ``block`` rounded up to a power of two, no larger
-    than ``n`` needs and at least 16."""
-    return max(16, next_pow2(min(max(int(block), 1), max(n, 1))))
+def threads_for(block: int) -> int:
+    """Threads per block of the look-back kernels (the scans, the bucket
+    router) for ``block``: a power of two in [32, 512]."""
+    return min(512, max(32, next_pow2(block)))
 
 
 def launch_counters() -> dict:

@@ -1,7 +1,7 @@
 """Public routing wrappers: the MoE router (``moe_route``: padding) and
-the shuffle exchange's router (``bucket_route``: sentinel padding, empty
-input), which reuses the MoE router's capacity-ordinal technique. The
-tensors' device picks kernel or plain version.
+the shuffle exchange's router (``bucket_route``: sentinel padding on the
+CPU, empty input), which reuses the MoE router's capacity-ordinal
+technique. The tensors' device picks kernel or plain version.
 """
 from __future__ import annotations
 
@@ -34,7 +34,8 @@ def bucket_route(dest: torch.Tensor, p: int, capacity: int, block: int = 512):
     dest: (N,) int32 in [0, p). Returns (pos (N,) i32, keep (N,) bool,
     counts (p,) i32) — bit-identical to the stable-argsort formulation in
     core/shuffle._pack_exchange (and to ``bucket_route_ref``). The tensor's
-    device picks kernel or plain version."""
+    device picks kernel or plain version; the kernel masks its ragged tail
+    itself, so a CUDA tensor is not padded."""
     (N,) = dest.shape
     dev = dest.device
     if N == 0:
@@ -42,6 +43,8 @@ def bucket_route(dest: torch.Tensor, p: int, capacity: int, block: int = 512):
                 torch.zeros(0, dtype=torch.bool, device=dev),
                 torch.zeros(p, dtype=torch.int32, device=dev))
     d = dest.to(torch.int32)
+    if d.is_cuda:
+        return bucket_route_fwd(d.contiguous(), p=p, capacity=capacity, block=block)
     pad = (-N) % block if N > block else 0
     if pad:
         # the sentinel p one-hots to an all-zero row: padding neither

@@ -1,6 +1,8 @@
 """Plain torch versions of the MoE router kernel and of the bucket-route
-kernel. The router's ordinals match ``models.moe.moe_ffn``: assignments are
-ranked within their expert in flattened (token-major, slot-minor) order."""
+kernel, and mirrors of both kernels' one-pass dataflows
+(``moe_route_lookback``, ``bucket_route_lookback``). The router's ordinals
+match ``models.moe.moe_ffn``: assignments are ranked within their expert in
+flattened (token-major, slot-minor) order."""
 from __future__ import annotations
 
 import torch
@@ -25,6 +27,72 @@ def bucket_route_ref(dest: torch.Tensor, p: int, capacity: int):
     pos = torch.where(routed, pos, 0)  # the kernel's one-hot of p is empty
     keep = (pos < capacity) & routed
     return pos, keep, counts_all[:p].to(torch.int32)
+
+
+def _peer_groups(b: torch.Tensor):
+    """For one warp's round of rows (lane i holds row i, bucket ``b[i]``):
+    each lane's peer mask (the lanes with its bucket: the kernel's ballots),
+    its rank among them (the peers below it: ``__popc(peers & lower)``),
+    whether it leads its group (its lowest peer) and the group's size."""
+    m = b.shape[0]
+    peers = b[:, None] == b[None, :]
+    lane = torch.arange(m, device=b.device)
+    lower = lane[None, :] < lane[:, None]
+    rank = (peers & lower).sum(1)
+    leads = peers.int().argmax(1) == lane
+    return rank, leads, peers.sum(1)
+
+
+def bucket_route_lookback(dest: torch.Tensor, p: int, capacity: int, tile: int = 8192,
+                          warps: int = 16):
+    """The CUDA bucket router's dataflow (``csrc/bucket_route.cu``) in plain
+    torch, with ``tile`` rows per tile and ``warps`` warps a tile, each warp
+    owning ``tile / warps`` consecutive rows that it walks 32 at a time: a
+    first walk counts each bucket's rows per warp in the warp's table; an
+    exclusive scan over the warps, per bucket, turns the table into each
+    warp's base in the tile, and the count carried into the tile per bucket
+    comes from the walk back over the aggregates of the tiles before it
+    (which never meets a published prefix here, as if no tile before had
+    finished, and walks to the first); a second walk gives each row its
+    warp's base plus its rank among its peers, the leader advancing the base
+    by its group. A row to
+    the sentinel ``p`` (or past it) takes pos 0, keep false and counts
+    nowhere. Same arguments and result as ``bucket_route_ref``. Nothing on
+    the main path calls it: the tests hold the dataflow against the JAX
+    kernel with it, on the CPU, where the CUDA kernel cannot run."""
+    if tile % (32 * warps):
+        raise ValueError(f"a tile is whole rounds of 32 rows for each of its {warps} warps, "
+                         f"got {tile} rows")
+    n, dev = dest.shape[0], dest.device
+    d = dest.long()
+    routed = (d >= 0) & (d < p)
+    b_all = torch.where(routed, d, p)  # unrouted rows: column p, never read
+    per_warp = tile // warps
+    pos = torch.zeros(n, dtype=torch.int32, device=dev)
+    tables, aggs = [], []
+    for a in range(0, n, tile):  # 1. each warp's count per bucket; 2. its base
+        table = torch.zeros((warps, p + 1), dtype=torch.int64, device=dev)
+        for w in range(warps):
+            for r in range(a + w * per_warp, min(a + (w + 1) * per_warp, n), 32):
+                b = b_all[r:min(r + 32, a + (w + 1) * per_warp, n)]
+                table[w].index_add_(0, b, torch.ones_like(b))  # a row each
+        aggs.append(table.sum(0)[:p])
+        tables.append(torch.cumsum(table, 0) - table)
+    carried = torch.zeros(p, dtype=torch.int64, device=dev)
+    for t, (a, base) in enumerate(zip(range(0, n, tile), tables)):
+        carried = torch.zeros(p, dtype=torch.int64, device=dev)
+        for i in range(t - 1, -1, -1):  # 3. the look-back, per bucket
+            carried = aggs[i] + carried
+        base[:, :p] += carried
+        for w in range(warps):  # 4. the ordinals
+            for r in range(a + w * per_warp, min(a + (w + 1) * per_warp, n), 32):
+                b = b_all[r:min(r + 32, a + (w + 1) * per_warp, n)]
+                rank, leads, size = _peer_groups(b)
+                pos[r:r + b.shape[0]] = (base[w, b] + rank).to(torch.int32)
+                base[w].index_add_(0, b[leads], size[leads])
+    counts = (carried + aggs[-1]) if aggs else carried
+    pos = torch.where(routed, pos, 0)
+    return pos, routed & (pos < capacity), counts.to(torch.int32)
 
 
 def _top_k(logits: torch.Tensor, k: int):

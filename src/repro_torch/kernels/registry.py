@@ -15,8 +15,9 @@ that is always available. This module decides, per wide node, which runs:
   cached. The ``kernel.capability`` fault site fires on every selection so
   chaos tests can force mid-job degradation.
 * **Autotune memo**: best block size per (kernel, aval, op) key, found by a
-  timed sweep over ``ignis.kernels.blocks`` candidates (the segmented
-  scan's threads per block, the bucket router's rows per program); an LRU
+  timed sweep over ``ignis.kernels.blocks`` candidates (the threads per
+  block of the segmented scan, of the prefix scan it carries, and of the
+  bucket router); an LRU
   with one-sweep-per-key discipline. Tuned blocks feed the wide-plan cache
   key.
 

@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _cuda, count_launch, counted, next_pow2, require_cuda
+from repro_torch.kernels import _cuda, count_launch, counted, require_cuda, threads_for
 from repro_torch.kernels.segment_reduce.ref import segment_scan_plain
 
 _OPS = {"sum": 0, "max": 1, "min": 2}
@@ -46,11 +46,6 @@ def _entry():
                           [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 4
                           + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
     return _fn
-
-
-def threads_for(block: int) -> int:
-    """Threads per block for ``block``: a power of two in [32, 512]."""
-    return min(512, max(32, next_pow2(block)))
 
 
 def rows_per_tile(d: int, block: int) -> int:

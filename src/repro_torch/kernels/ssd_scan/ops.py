@@ -40,14 +40,18 @@ def prefix_scan(x: torch.Tensor, op: str = "sum", block: int = 512,
 
     ``reverse=True`` scans from the tail (the suffix-min pass of
     ``segment_totals``). Bool rides as i32 and is cast back. Bit-identical
-    to ``prefix_scan_ref`` for integer dtypes (associative-exact ops — any
-    association order agrees). The tensor's device picks kernel or plain
-    version."""
+    to ``prefix_scan_ref`` for integer dtypes and for float max/min. The
+    tensor's device picks kernel or plain version; the kernel scans from
+    the tail and masks its ragged tail itself, so a CUDA tensor is neither
+    flipped nor padded."""
     (N,) = x.shape
     if N == 0:
         return x
     squeeze_bool = x.dtype == torch.bool
     v = x.to(torch.int32) if squeeze_bool else x
+    if v.is_cuda:
+        out = prefix_scan_fwd(v.contiguous(), op=op, block=block, reverse=reverse)
+        return out.to(torch.bool) if squeeze_bool else out
     if reverse:
         v = torch.flip(v, dims=(0,))
     ident = op_identity(op, v.dtype)

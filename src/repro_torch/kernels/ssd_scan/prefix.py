@@ -1,35 +1,53 @@
-"""Inclusive 1-D prefix scan (sum/max/min) — Triton kernel for Hopper.
+"""Inclusive 1-D prefix scan (sum/max/min) — CUDA C++ kernel for Hopper, in
+one pass.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/ssd_scan/prefix.py::
 prefix_scan_fwd``, whose sequential grid carried the running reduction from
-tile to tile in a VMEM scratch scalar. CUDA blocks run in parallel and in no
-order, so the carry becomes a second pass:
+tile to tile in a VMEM scratch scalar. Here it is the segmented scan's tile
+scan with the flags compiled out (``prefix_scan_fwd`` in
+``src/repro_torch/csrc/segment_reduce.cu``): every block scans one tile and
+takes the value carried into it from a decoupled look-back
+(``csrc/lookback.cuh``) over its predecessors' aggregates. The input is
+read once and the scan written once, in one launch besides the memset of
+its scratch.
 
-  1. ``scan_tile``: each program scans ``BLOCK`` rows with
-     ``tl.associative_scan`` and stores the rows plus the tile's aggregate;
-  2. the aggregates (``n/BLOCK`` of them) are scanned by the same two-pass
-     scheme, recursively, until one tile holds them all;
-  3. ``fold_carry``: every tile after the first folds the inclusive
-     aggregate of the tiles before it into its rows.
+What bounds it on this card: bytes — one combine per element, far below the
+H100's operations-per-byte balance; the least traffic is one read and one
+write of each element, which the design moves.
 
-What bounds it on this card: bytes. It does one add/min/max per element,
-far below the H100's ~295 operations per byte of device memory. The least
-traffic is one read and one write per element; this version reads and
-writes the output a second time in pass 3 (about 2x the least bytes) in
-exchange for needing no inter-block synchronisation. A single-pass
-decoupled look-back would reach the least bytes.
+``reverse`` scans from the tail inside the kernel (``segment_totals`` runs
+it so, as the suffix-min that finds each key segment's last row), and the
+kernel masks its own ragged tail: nothing flips or pads. Max and min take
+torch.cummax's and cummin's rule, NaN included, so a CUDA result equals the
+plain version's bit for bit; integer sums wrap as torch's do.
 
-``segment_totals`` runs it with ``reverse=True`` (the wrapper flips) as the
-suffix-min that finds each key segment's last row.
+``block`` selects the threads of a block, rounded to a power of two in
+[32, 512], each scanning 16 rows, as for the segmented scan: the
+registry's autotune passes ``segment_totals``' tuned block through.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from repro_torch.kernels import count_launch, counted, require_cuda, tile, triton_kernels
+from repro_torch.kernels import _cuda, count_launch, counted, require_cuda, threads_for
 from repro_torch.kernels.ssd_scan.ref import prefix_scan_ref
 
 _OPS = {"sum": 0, "max": 1, "min": 2}
+_DTYPES = {torch.int32: 0, torch.float32: 1}
+#: rows a thread scans (``R1`` in the source)
+ROWS_PER_THREAD = 16
+_fn = None
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        _fn = _cuda.entry("segment_reduce", "prefix_scan_fwd",
+                          [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                          + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+    return _fn
 
 
 def op_identity(op: str, dtype):
@@ -42,36 +60,42 @@ def op_identity(op: str, dtype):
     return info.min if op == "max" else info.max
 
 
-def _scan_cuda(x: torch.Tensor, op: str, block: int) -> torch.Tensor:
-    K = triton_kernels("repro_torch.kernels.ssd_scan._triton")
-    n = x.shape[0]
-    bq = tile(block, n)
-    n_tiles = -(-n // bq)
-    ident = op_identity(op, x.dtype)
-    if x.dtype.is_floating_point:
-        ident = float(ident)
-    out = torch.empty_like(x)
-    agg = torch.empty((n_tiles,), dtype=x.dtype, device=x.device)
-    K.scan_tile[(n_tiles,)](x, out, agg, n, ident, OP=_OPS[op], BLOCK=bq)
-    if n_tiles > 1:
-        inc = _scan_cuda(agg, op, block)
-        K.fold_carry[(n_tiles - 1,)](out, inc, n, OP=_OPS[op], BLOCK=bq)
-    return out
+def rows_per_tile(block: int) -> int:
+    """Rows of a tile at ``block``."""
+    return threads_for(block) * ROWS_PER_THREAD
+
+
+def scratch_bytes(n: int, block: int) -> int:
+    """The look-back's scratch: a tile counter, then one 64-bit word per
+    tile; the entry point refuses less than its own count."""
+    return 8 + 8 * -(-n // rows_per_tile(block))
 
 
 @counted
-def prefix_scan_fwd(x: torch.Tensor, op: str = "sum",
-                    block: int = 512) -> torch.Tensor:
+def prefix_scan_fwd(x: torch.Tensor, op: str = "sum", block: int = 512,
+                    reverse: bool = False) -> torch.Tensor:
     """x: (N,) int32 or float32. Returns the inclusive scan (N,), same
-    dtype. A CPU tensor takes the plain version (the counterpart of Pallas's
-    interpret mode); a CUDA tensor launches the kernel."""
+    dtype, from the tail where ``reverse``. A CPU tensor takes the plain
+    version (the counterpart of Pallas's interpret mode); a CUDA tensor
+    launches the kernel or raises."""
     if op not in _OPS:
         raise ValueError(f"prefix scan op must be sum/max/min, got {op!r}")
     if not x.is_cuda:
-        return prefix_scan_ref(x, op)
+        return prefix_scan_ref(x, op, reverse)
     require_cuda(x)
-    if x.dtype not in (torch.int32, torch.float32) or x.ndim != 1:
+    if x.dtype not in _DTYPES or x.ndim != 1:
         raise ValueError(f"prefix_scan kernel takes (N,) int32/float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    count_launch(prefix_scan_fwd, (tuple(x.shape), op))
-    return _scan_cuda(x, op, block)
+    n = x.shape[0]
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    nbytes = scratch_bytes(n, block)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _entry()(x.data_ptr(), out.data_ptr(), n, _DTYPES[x.dtype], _OPS[op],
+                       int(bool(reverse)), threads_for(block), scratch.data_ptr(), nbytes,
+                       torch.cuda.current_stream(x.device).cuda_stream)
+    _cuda.raise_on_error("segment_reduce", err, "prefix_scan")
+    count_launch(prefix_scan_fwd, (tuple(x.shape), op, bool(reverse)))
+    return out

@@ -1,6 +1,7 @@
 """Plain torch versions of the SSD scan kernel (= the model-side chunked
-SSD) and of the prefix-scan kernel (= torch's cumulative ops), and
-``ssd_stages_ref``, a mirror of the SSD kernel's four-step dataflow."""
+SSD) and of the prefix-scan kernel (= torch's cumulative ops), and mirrors
+of the kernels' dataflows: ``ssd_stages_ref`` (the SSD kernel's four
+steps) and ``prefix_scan_lookback`` (the prefix scan's one pass)."""
 from __future__ import annotations
 
 import torch
@@ -103,3 +104,52 @@ def prefix_scan_ref(x: torch.Tensor, op: str = "sum", reverse: bool = False):
     if reverse:
         out = torch.flip(out, dims=(0,))
     return out.to(torch.bool) if x.dtype == torch.bool else out
+
+
+def _pick(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The prefix kernel's combine of ``a`` (earlier) and ``b`` (later):
+    for float max/min torch.cummax's and cummin's rule — a NaN wins, and of
+    two equal values (two NaNs, or -0 and +0) the later is kept."""
+    if op == "sum":
+        return a + b
+    if not a.dtype.is_floating_point:
+        return torch.maximum(a, b) if op == "max" else torch.minimum(a, b)
+    later = b >= a if op == "max" else b <= a
+    return torch.where(torch.isnan(b) | (~torch.isnan(a) & later), b, a)
+
+
+def prefix_scan_lookback(x: torch.Tensor, op: str = "sum", reverse: bool = False,
+                         tile: int = 8192) -> torch.Tensor:
+    """The CUDA prefix scan's dataflow (``prefix_scan_fwd`` in
+    ``csrc/segment_reduce.cu``) in plain torch, with ``tile`` rows per tile:
+    tiles are cut from the head of the array in either direction (the last
+    one ragged) and taken in the look-back's order, last first under
+    ``reverse``; each tile's own scan (from its high end under ``reverse``)
+    and its aggregate (the scan's last row in that order); each tile's
+    exclusive prefix from the walk back over the aggregates of the tiles
+    before it in that order, which never meets a published prefix here, as
+    if no tile before had finished, and walks to the first; then every row
+    of the tile combined with that prefix. Same arguments and result as
+    ``prefix_scan_ref``. Nothing on the main path calls it: the tests hold
+    the dataflow against the JAX kernel with it, on the CPU, where the CUDA
+    kernel cannot run."""
+    v = x.to(torch.int32) if x.dtype == torch.bool else x
+    starts = list(range(0, v.shape[0], tile))
+    if reverse:
+        starts.reverse()
+    scans = []
+    for a in starts:
+        t = v[a:a + tile]
+        scans.append(torch.flip(_cum(torch.flip(t, dims=(0,)), op), dims=(0,)) if reverse
+                     else _cum(t, op))
+    aggs = [sc[0] if reverse else sc[-1] for sc in scans]
+    out = scans[:1]
+    for t in range(1, len(scans)):
+        pre = None
+        for i in range(t - 1, -1, -1):
+            pre = aggs[i] if pre is None else _pick(op, aggs[i], pre)
+        out.append(_pick(op, pre, scans[t]))
+    if reverse:
+        out.reverse()
+    res = torch.cat(out) if out else v.clone()
+    return res.to(torch.bool) if x.dtype == torch.bool else res

@@ -7,7 +7,7 @@ runs them. Inputs are made with numpy from a seed and fed to both.
 Ints, max/min and integer-valued f32 must match bit for bit. Random f32
 sums match to rtol=1e-5: the association order of the scans differs.
 
-chip_smoke.py holds the Triton kernels against these plain versions on
+chip_smoke.py holds the CUDA kernels against these plain versions on
 the card.
 """
 import numpy as np

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the segmented scan and the MoE router of one tree of the torch port
-on one NVIDIA card, at the shapes of ``chip_smoke.py``'s main paths.
+"""Time the look-back kernels of one tree of the torch port (the segmented
+scan, the prefix scan, the bucket router and the MoE router) on one NVIDIA
+card, at the shapes of ``chip_smoke.py``'s main paths.
 
     PYTHONPATH=src python3 tools/time_lookback_kernels.py [--src DIR] [--reps N]
 
@@ -13,16 +14,26 @@ JSON line:
 - ``segment_reduce`` at (2^27, 1) int32, op max, 5 % boundaries (the hybrid
   ``reduceByKey(max)`` post hook's shape), at each ``block`` the autotune
   sweeps by default (``ms_by_block``), the fastest reported as ``ms``;
+- ``prefix_scan`` at 2^27 int32, op min (``segment_totals``' last-row
+  gather), forward at each ``block``, the fastest reported as ``ms``; also
+  ``reverse_ms``, the public ``ops.prefix_scan(..., reverse=True)`` as
+  ``segment_totals`` calls it (a tree whose kernel cannot scan from the
+  tail flips around it), and ``sum_ms`` against ``cumsum_ms``
+  (``torch.cumsum``);
+- ``bucket_route`` at 2^20 rows, P = 64, capacity 20480 (the hybrid join's
+  exchange), by device time at each ``block`` (``device_ms_by_block``; at
+  this size CUDA events time the host's issue rate), the fastest reported;
 - ``moe_route`` at (2048, 8) f32, k 2, capacity 568 (a Mixtral prefill) and
   at (4, 8), capacity 2 (a decode tick of 4 slots);
 
 each with ``ms`` (CUDA events around back-to-back calls of the wrapper),
 ``device_ms`` (``torch.profiler``: the device time of the call's launches,
 memsets included; per launch, and launches per call, in
-``device_ms_by_launch``) and, for the router, ``host_us``
+``device_ms_by_launch``) and, for the two routers, ``host_us``
 (``time.perf_counter`` over ``--host-calls`` calls of the wrapper, without a
 synchronize inside the loop: the host's time to issue one call), measured
-by ``chip_smoke.py``'s helpers.
+by ``chip_smoke.py``'s helpers. ``block`` means what each tree's wrapper
+makes of it (threads a block for the CUDA kernels).
 """
 from __future__ import annotations
 
@@ -54,9 +65,13 @@ def main() -> int:
         print("time_lookback_kernels: torch sees no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
-    from repro_torch.kernels.moe_route.ref import moe_route_ref
+    from repro_torch.kernels.moe_route.ref import bucket_route_ref, moe_route_ref
+    from repro_torch.kernels.moe_route.route import bucket_route_fwd
     from repro_torch.kernels.segment_reduce.ref import segment_scan_plain
     from repro_torch.kernels.segment_reduce.segment_reduce import segment_reduce_fwd
+    from repro_torch.kernels.ssd_scan.ops import prefix_scan
+    from repro_torch.kernels.ssd_scan.prefix import prefix_scan_fwd
+    from repro_torch.kernels.ssd_scan.ref import prefix_scan_ref
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -80,6 +95,47 @@ def main() -> int:
                                  ms=ms[best], device_ms=cs.device_ms(call, 20),
                                  device_ms_by_launch=cs.device_profile(call, 20))
     del ref, v, hb
+
+    x = torch.randint(0, n, (n,), generator=g, device="cuda", dtype=torch.int32)
+    ref = prefix_scan_ref(x, "min")
+    ms, ok = {}, True
+    for block in BLOCKS:
+        ok = ok and torch.equal(prefix_scan_fwd(x, op="min", block=block), ref)
+        ms[block] = cs.time_ms(lambda: prefix_scan_fwd(x, op="min", block=block),
+                               max(args.reps // 10, 10))
+    best = min(ms, key=ms.get)
+    call = lambda: prefix_scan_fwd(x, op="min", block=best)  # noqa: E731
+    rev = lambda: prefix_scan(x, op="min", block=best, reverse=True)  # noqa: E731
+    ok = ok and torch.equal(rev(), prefix_scan_ref(x, "min", reverse=True))
+    ok = ok and torch.equal(prefix_scan_fwd(x, op="sum", block=best),
+                            torch.cumsum(x, 0, dtype=x.dtype))
+    out["prefix_scan"] = dict(
+        shape=[n], op="min", equal=ok, ms_by_block=ms, block=best, ms=ms[best],
+        device_ms=cs.device_ms(call, 20), device_ms_by_launch=cs.device_profile(call, 20),
+        reverse_ms=cs.time_ms(rev, max(args.reps // 10, 10)),
+        reverse_device_ms=cs.device_ms(rev, 20),
+        sum_ms=cs.time_ms(lambda: prefix_scan_fwd(x, op="sum", block=best),
+                          max(args.reps // 10, 10)),
+        cumsum_ms=cs.time_ms(lambda: torch.cumsum(x, 0, dtype=x.dtype),
+                             max(args.reps // 10, 10)))
+    del ref, x
+
+    n, P, C = 1 << 20, 64, 20480
+    dest = torch.randint(0, P, (n,), generator=g, device="cuda", dtype=torch.int32)
+    ref = bucket_route_ref(dest, P, C)
+    ms, ok = {}, True
+    for block in BLOCKS:
+        got = bucket_route_fwd(dest, P, C, block=block)
+        ok = ok and all(torch.equal(a, b) for a, b in zip(got, ref))
+        ms[block] = cs.device_ms(lambda: bucket_route_fwd(dest, P, C, block=block), 50)
+    best = min(ms, key=ms.get)
+    call = lambda: bucket_route_fwd(dest, P, C, block=best)  # noqa: E731
+    out["bucket_route"] = dict(shape=[n], p=P, capacity=C, equal=ok, device_ms_by_block=ms,
+                               block=best, ms=cs.time_ms(call, args.reps),
+                               device_ms=cs.device_ms(call, 50),
+                               device_ms_by_launch=cs.device_profile(call, 50),
+                               host_us=cs.host_us(call, args.host_calls))
+    del ref, dest
 
     for T, C in ((2048, 568), (4, 2)):
         x = torch.randn((T, 8), generator=g, device="cuda")
