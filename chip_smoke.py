@@ -748,7 +748,8 @@ def route_edge_checks():
     ``bucket_route_ref`` (the stable argsort) on the card: P in
     ``ROUTE_EDGE_P``, N of 1, a tile's rows - 1, a tile (one tile, no
     look-back), + 1 and three tiles + 1 at block 512, destinations random,
-    a fifth of them the sentinel P, or all to one bucket, with a capacity
+    a fifth of them the sentinel P, a fifth past it (ids whose low bits
+    name a real bucket among them), or all to one bucket, with a capacity
     below the fullest bucket's demand and one above every bucket's; all rows
     to one bucket over 20000 tiles at P = 64 (block 32); N = 0 through the
     wrapper. pos, keep and counts bit for bit. Each case ``BACK_TO_BACK``
@@ -770,6 +771,9 @@ def route_edge_checks():
         d = r.ints(n, 0, p)
         if kind == "sentinel":
             d[r.rand(n) < 0.2] = p
+        if kind == "past":  # past the sentinel, some whose low bits name a bucket
+            past = r.rand(n) < 0.2
+            d[past] = r.ints(n, p + 1, 4 * p + 4)[past]
         return d
 
     def run(d, p, C, block, what):
@@ -784,7 +788,7 @@ def route_edge_checks():
                     bad.append(f"{what}, launch {i + 1}: {nm} differs")
         return not bool(ref[1].all())
 
-    for p, kind in itertools.product(ROUTE_EDGE_P, ("random", "sentinel", "one")):
+    for p, kind in itertools.product(ROUTE_EDGE_P, ("random", "sentinel", "past", "one")):
         tile = route.geometry(p, 512)[1]
         for n in (1, tile - 1, tile, tile + 1, 3 * tile + 1):
             d = dests(kind, n, p)
@@ -806,7 +810,8 @@ def route_edge_checks():
     check(not bad, f"bucket_route edge checks: {len(bad)} failed of {n_cases}: {bad[:6]}")
     check(dropped > 0, "bucket_route edge checks: no case dropped a row")
     log(f"edge: bucket_route kernel — {n_cases} cases (P {ROUTE_EDGE_P} x random, a fifth to "
-        f"the sentinel, all to one bucket x N 1, a tile -1, a tile, +1, 3 tiles + 1 x C below "
+        f"the sentinel, a fifth past it, all to one bucket x N 1, a tile -1, a tile, +1, "
+        f"3 tiles + 1 x C below "
         f"and above the demand ({dropped} dropping rows); all rows to one bucket over 20001 "
         f"tiles at P = 64; N = 0): pos, keep and counts bit for bit, each launched "
         f"{BACK_TO_BACK} times back to back: OK")
@@ -848,7 +853,7 @@ def kernel_checks(main_launches, reps: int):
     best = min(ms_by_block, key=ms_by_block.get)
     nbytes = 2 * n * d * 4 + n  # values in, scan out, flags in
     by_ms, per_call = device_profile(lambda: fwd(v, hb, op=op, block=best))
-    check(set(per_call) == {"scan_kernel", "Memset"}
+    check(set(per_call) == {"scan_kernel<Segmented>", "Memset"}
           and all(c == 1 for c in per_call.values()),
           f"segment_reduce: the profiler lists {per_call} launches per call, not one "
           f"kernel and its memset")
@@ -876,8 +881,8 @@ def kernel_checks(main_launches, reps: int):
     best = min(ms_by_block, key=ms_by_block.get)
     by_ms, per_call = device_profile(lambda: fwd(x, op=op, block=best))
     rev_ms, rev_call = device_profile(lambda: fwd(x, op=op, block=best, reverse=True))
-    for what, calls in (("forward", per_call), ("reverse", rev_call)):
-        check(set(calls) == {"scan_kernel", "Memset"}
+    for what, calls in (("Prefix", per_call), ("PrefixReverse", rev_call)):
+        check(set(calls) == {f"scan_kernel<{what}>", "Memset"}
               and all(c == 1 for c in calls.values()),
               f"prefix_scan ({what}): the profiler lists {calls} launches per call, not one "
               f"kernel and its memset")
@@ -1337,12 +1342,19 @@ def ssd_row(launches, reps: int):
     return row
 
 
+#: the first template argument of ``scan_kernel`` (csrc/segment_reduce.cu):
+#: which scan it runs, kept in the names ``device_profile`` reports
+SCAN_KINDS = ("Segmented", "Prefix", "PrefixReverse")
+
+
 def device_profile(fn, reps: int = 10):
     """``({kernel name: device ms per launch}, {kernel name: launches per
     call})`` of ``fn``'s launches, from ``torch.profiler`` over ``reps``
     calls after a warm-up (both empty where the profiler sees no device
-    time); a memset is named ``Memset``. Times are per launch seen: over many
-    short back-to-back launches the profiler can miss a few."""
+    time); a memset is named ``Memset``, a kernel by its name without its
+    template arguments, but for a scan's kind (``scan_kernel<Prefix>``).
+    Times are per launch seen: over many short back-to-back launches the
+    profiler can miss a few."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1357,8 +1369,11 @@ def device_profile(fn, reps: int = 10):
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         if getattr(e, "device_type", None) == DeviceType.CUDA and t > 0:
-            name = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+            key = e.key.replace("(anonymous namespace)::", "")
+            name, _, args = key.split("(")[0].partition("<")
             name = name.split()[-1].split("::")[-1]  # "void ns::ssd_cb" -> "ssd_cb"
+            kind = args.split(",")[0].split("::")[-1].strip(" >")
+            name += f"<{kind}>" if kind in SCAN_KINDS else ""
             us[name] = us.get(name, 0.0) + t
             count[name] = count.get(name, 0) + e.count
     return ({k: round(us[k] / 1e3 / count[k], 6) for k in us},

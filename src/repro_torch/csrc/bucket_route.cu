@@ -6,7 +6,7 @@
 // computes, for (N,) int32 destinations in [0, P], P the padding sentinel:
 // each row's ordinal `pos` among the earlier rows to its bucket (the rank a
 // stable argsort by destination gives), keep = pos < capacity & dest < P,
-// and `counts`, each bucket's rows. A row to the sentinel (or past it) takes
+// and `counts`, each bucket's rows. A row to the sentinel or past it takes
 // pos 0 and keep false and counts nowhere.
 //
 // What bounds it on this card: launch latency, then bytes. At the hybrid
@@ -29,11 +29,14 @@
 // __match_any_sync ran slower), its ordinal its warp's base plus the peers
 // below its lane, and the lowest peer advances the base by its group.
 //
-// Any P up to MAX_BUCKETS: the table takes 4 P bytes a warp, and the tile's
-// counts 4 P more, so a block has as many warps as TABLE_BYTES holds (at
-// least one, above 48 KB by opting in to more dynamic shared memory), and a
-// tile at least 16 P rows, so the look-back's words (8 P bytes a tile) stay
-// an eighth of the tile's input.
+// Any P whose one warp's table and counts fit in shared memory (8 P bytes,
+// at most MAX_SMEM): the table takes 4 P bytes a warp, and the tile's counts
+// 4 P more. The caller chooses the warps of a block and the rows of a tile
+// (kernels/moe_route/route.py::geometry: as many warps as 48 KB holds, at
+// least one, above 48 KB by opting in to more dynamic shared memory, and a
+// tile at least 16 P rows, so the look-back's words, 8 P bytes a tile, stay
+// an eighth of the tile's input); the entry point takes any tile of whole
+// batches of U rounds for each warp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,34 +45,10 @@
 
 namespace {
 
-constexpr int MAX_WARPS = 16;            // threads per block: 32 .. 512
-constexpr long TABLE_BYTES = 48 * 1024;  // the warps' table and the tile's counts, mostly
-constexpr int MAX_BUCKETS = 16 * 1024;   // one warp's table and the counts: 128 KB
-constexpr int U = 8;                     // rounds of 32 rows a warp loads at once
-constexpr int MIN_BATCHES = 2;           // of U rounds, a warp's at least
-constexpr int ROWS_PER_BUCKET = 16;      // a tile's rows, at least, per bucket
+constexpr int MAX_WARPS = 16;               // threads per block: 32 .. 512
+constexpr long MAX_SMEM = 227 * 1024 - 16;  // dynamic shared memory a block may take
+constexpr int U = 8;                        // rounds of 32 rows a warp loads at once
 constexpr unsigned FULL = 0xffffffffu;
-
-struct Geometry {
-  int warps;
-  long rows, tiles, scratch_bytes;
-  size_t smem;
-};
-
-Geometry geometry(long n, int p, int threads) {
-  Geometry g;
-  const long fit = TABLE_BYTES / (4L * p) - 1;
-  g.warps = static_cast<int>(fit < 1 ? 1 : fit < threads / 32 ? fit : threads / 32);
-  // a warp's rounds: a whole number of batches of U, at least MIN_BATCHES
-  const long batches = (static_cast<long>(ROWS_PER_BUCKET) * p + 32L * U * g.warps - 1) /
-                       (32L * U * g.warps);
-  g.rows = 32L * U * g.warps * (batches > MIN_BATCHES ? batches : MIN_BATCHES);
-  g.tiles = (n + g.rows - 1) / g.rows;
-  // the tile counter, then a word per (tile, bucket); none for one tile
-  g.scratch_bytes = g.tiles > 1 ? 8 + 8 * g.tiles * p : 0;
-  g.smem = 4ul * (g.warps + 1) * p;
-  return g;
-}
 
 // the lanes whose bucket is b (b's peers), from one ballot per bit of the
 // `bits` a bucket id takes
@@ -110,7 +89,8 @@ bucket_route_kernel(const int* __restrict__ dest, int* __restrict__ pos, bool* _
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const long r = base + 32 * u + lane;
-      b[u] = r < r1 ? dest[r] : p;
+      const int d = r < r1 ? dest[r] : p;  // an id past p (or below 0) goes to p
+      b[u] = static_cast<unsigned>(d) <= static_cast<unsigned>(p) ? d : p;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u)
@@ -158,7 +138,8 @@ bucket_route_kernel(const int* __restrict__ dest, int* __restrict__ pos, bool* _
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const long r = base + 32 * u + lane;
-      b[u] = r < r1 ? dest[r] : p;
+      const int d = r < r1 ? dest[r] : p;  // an id past p (or below 0) goes to p
+      b[u] = static_cast<unsigned>(d) <= static_cast<unsigned>(p) ? d : p;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -181,38 +162,41 @@ bucket_route_kernel(const int* __restrict__ dest, int* __restrict__ pos, bool* _
 }  // namespace
 
 // dest (n,) int32, pos (n,) int32, keep (n,) bool, counts (p,) int32, all
-// contiguous; 1 <= p <= MAX_BUCKETS; threads a multiple of 32 in [32, 512]
-// (the block takes fewer warps where their table would not fit); scratch
-// 8-byte aligned, of at least the geometry's scratch_bytes (a tile counter
-// and a word per tile and bucket; none for one tile). Zeroes the scratch
-// (where there is one) and launches one kernel on `stream`; returns
-// cudaGetLastError() after the launch (0 on success).
+// contiguous; p >= 1; warps, the block's, in [1, 16], with their tables and
+// the tile's counts, 4 (warps + 1) p bytes, within MAX_SMEM; rows, a tile's,
+// a positive multiple of 32 U warps; scratch 8-byte aligned, of at least a
+// tile counter and a word per tile and bucket (none for one tile). Zeroes
+// the scratch (where there is one) and launches one kernel on `stream`;
+// returns cudaGetLastError() after the launch (0 on success).
 extern "C" int bucket_route_fwd(const void* dest, void* pos, void* keep, void* counts,
-                                long long n, int p, int capacity, int threads, void* scratch,
-                                long long scratch_bytes, void* stream) {
-  if (n < 1 || p < 1 || p > MAX_BUCKETS || threads < 32 || threads > MAX_WARPS * 32 ||
-      threads % 32 != 0 || (reinterpret_cast<uintptr_t>(scratch) & 7) != 0)
+                                long long n, int p, int capacity, int warps, long long rows,
+                                void* scratch, long long scratch_bytes, void* stream) {
+  if (n < 1 || p < 1 || warps < 1 || warps > MAX_WARPS || rows < 1 ||
+      rows % (32L * U * warps) != 0 || 4L * (warps + 1) * p > MAX_SMEM ||
+      (reinterpret_cast<uintptr_t>(scratch) & 7) != 0)
     return cudaErrorInvalidValue;
-  const Geometry g = geometry(n, p, threads);
-  if (scratch_bytes < g.scratch_bytes || g.tiles > 0x7fffffffL) return cudaErrorInvalidValue;
+  const long tiles = (n + rows - 1) / rows;
+  // the tile counter, then a word per (tile, bucket); none for one tile
+  const long need = tiles > 1 ? 8 + 8 * tiles * p : 0;
+  if (scratch_bytes < need || tiles > 0x7fffffffL) return cudaErrorInvalidValue;
+  const size_t smem = 4ul * (warps + 1) * p;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (g.smem > 32 * 1024) {  // past the 48 KB a block has unasked, with its own 16
+  if (smem > 32 * 1024) {  // past the 48 KB a block has unasked, with its own 16
     err = cudaFuncSetAttribute(bucket_route_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(g.smem));
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  if (g.scratch_bytes > 0) {
-    err = cudaMemsetAsync(scratch, 0, g.scratch_bytes, s);
+  if (need > 0) {
+    err = cudaMemsetAsync(scratch, 0, need, s);
     if (err != cudaSuccess) return err;
   }
-  unsigned* counter = g.scratch_bytes > 0 ? static_cast<unsigned*>(scratch) : nullptr;
-  uint64_t* words = g.scratch_bytes > 0
-                        ? reinterpret_cast<uint64_t*>(static_cast<char*>(scratch) + 8)
-                        : nullptr;
-  bucket_route_kernel<<<static_cast<unsigned>(g.tiles), g.warps * 32, g.smem, s>>>(
+  unsigned* counter = need > 0 ? static_cast<unsigned*>(scratch) : nullptr;
+  uint64_t* words =
+      need > 0 ? reinterpret_cast<uint64_t*>(static_cast<char*>(scratch) + 8) : nullptr;
+  bucket_route_kernel<<<static_cast<unsigned>(tiles), warps * 32, smem, s>>>(
       static_cast<const int*>(dest), static_cast<int*>(pos), static_cast<bool*>(keep),
-      static_cast<int*>(counts), n, p, capacity, g.rows, counter, words);
+      static_cast<int*>(counts), n, p, capacity, rows, counter, words);
   return cudaGetLastError();
 }
 

@@ -152,18 +152,31 @@ __device__ __forceinline__ Carry<T, DC> combine(const Carry<T, DC>& a, const Car
   return r;
 }
 
-// Both scans, one tile a block: SEG, the segmented scan under `flags`;
-// else the prefix scan, with no flags (`flags` unused), REV scanning from
-// the tail. The segmented scan takes at most 32 registers a thread (four
-// blocks of 512 threads on an SM, its 2048 threads): a tile's serial steps
-// (the tile counter, the block's barriers, the look-back) leave its loads
-// idle, and only more blocks on the SM cover that; at 50 registers (three
-// 256-thread blocks) it ran slower. The prefix scan takes 40 (three
-// blocks): at 32 it spilled, and ran slower.
-template <typename T, int OP, int DC, int R, bool SEG, bool REV>
-__global__ void __launch_bounds__(MAX_WARPS * 32, SEG ? 4 : 3)
+// Which scan scan_kernel runs; as its first template argument, the name a
+// profile or a trace shows beside the kernel's.
+struct Segmented {  // under the rows' flags
+  static constexpr bool seg = true, rev = false;
+};
+struct Prefix {  // no flags (`flags` unused)
+  static constexpr bool seg = false, rev = false;
+};
+struct PrefixReverse {  // no flags, from the tail
+  static constexpr bool seg = false, rev = true;
+};
+
+// Both scans, one tile a block, in one template: the segmented scan takes
+// at most 32 registers a thread (four blocks of 512 threads on an SM, its
+// 2048 threads): a tile's serial steps (the tile counter, the block's
+// barriers, the look-back) leave its loads idle, and only more blocks on the
+// SM cover that; at 50 registers (three 256-thread blocks) it ran slower.
+// The prefix scan takes 40 (three blocks): at 32 it spilled, and ran slower.
+// (The body as a __forceinline__ __device__ function under two __global__
+// entry points spilled more, and the segmented scan ran 27 % slower.)
+template <typename Kind, typename T, int OP, int DC, int R>
+__global__ void __launch_bounds__(MAX_WARPS * 32, Kind::seg ? 4 : 3)
 scan_kernel(const T* __restrict__ v, const uint8_t* __restrict__ flags, T* __restrict__ out,
             long n, int d, int n_groups, bool aligned, unsigned* counter, uint64_t* words) {
+  constexpr bool SEG = Kind::seg, REV = Kind::rev;
   static_assert(SEG || DC == 1, "the prefix scan is one column");
   static_assert(!(SEG && REV), "the segmented scan runs forward");
   __shared__ uint4 stage_all[DC == 1 ? MAX_WARPS * 8 * R : 1];
@@ -410,11 +423,11 @@ cudaError_t launch(const void* v, const void* flags, void* out, long n, int d, i
   uint64_t* words = reinterpret_cast<uint64_t*>(static_cast<char*>(scratch) + 8);
   const dim3 grid(static_cast<unsigned>(g.n_tiles * g.n_groups));
   if (d == 1)
-    scan_kernel<T, OP, 1, R1, true, false><<<grid, threads, 0, stream>>>(
+    scan_kernel<Segmented, T, OP, 1, R1><<<grid, threads, 0, stream>>>(
         static_cast<const T*>(v), static_cast<const uint8_t*>(flags), static_cast<T*>(out), n, d,
         1, aligned, counter, words);
   else
-    scan_kernel<T, OP, DCD, RD, true, false><<<grid, threads, 0, stream>>>(
+    scan_kernel<Segmented, T, OP, DCD, RD><<<grid, threads, 0, stream>>>(
         static_cast<const T*>(v), static_cast<const uint8_t*>(flags), static_cast<T*>(out), n, d,
         static_cast<int>(g.n_groups), aligned, counter, words);
   return cudaGetLastError();
@@ -432,11 +445,11 @@ cudaError_t launch_prefix(const void* x, void* out, long n, bool reverse, int th
   uint64_t* words = reinterpret_cast<uint64_t*>(static_cast<char*>(scratch) + 8);
   const dim3 grid(static_cast<unsigned>(g.n_tiles));
   if (reverse)
-    scan_kernel<T, OP, 1, R1, false, true><<<grid, threads, 0, stream>>>(
+    scan_kernel<PrefixReverse, T, OP, 1, R1><<<grid, threads, 0, stream>>>(
         static_cast<const T*>(x), nullptr, static_cast<T*>(out), n, 1, 1, aligned, counter,
         words);
   else
-    scan_kernel<T, OP, 1, R1, false, false><<<grid, threads, 0, stream>>>(
+    scan_kernel<Prefix, T, OP, 1, R1><<<grid, threads, 0, stream>>>(
         static_cast<const T*>(x), nullptr, static_cast<T*>(out), n, 1, 1, aligned, counter,
         words);
   return cudaGetLastError();
@@ -470,14 +483,16 @@ extern "C" int segment_reduce_fwd(const void* v, const void* flags, void* out, l
 }
 
 // x and out (n,) int32 (dtype 0) or float32 (dtype 1), contiguous; op 0
-// sum, 1 max, 2 min; reverse 1 scans from the tail; threads a multiple of 32
-// in [32, 512]; scratch 8-byte aligned, of at least 8 bytes (the tile
-// counter) and 8 more per tile of 16 threads' rows (the look-back's words).
-// Zeroes the scratch and launches one kernel on `stream`; returns
-// cudaGetLastError() after the launch (0 on success).
+// sum, 1 max, 2 min; reverse 1 scans from the tail; rows, a tile's rows: 16
+// a thread, for a multiple of 32 threads in [32, 512] (the caller chooses
+// the tile, so its edges are where the caller puts them); scratch 8-byte
+// aligned, of at least 8 bytes (the tile counter) and 8 more per tile (the
+// look-back's words). Zeroes the scratch and launches one kernel on
+// `stream`; returns cudaGetLastError() after the launch (0 on success).
 extern "C" int prefix_scan_fwd(const void* x, void* out, long long n, int dtype, int op_,
-                               int reverse, int threads, void* scratch,
-                               long long scratch_bytes, void* stream) {
+                               int reverse, int rows, void* scratch, long long scratch_bytes,
+                               void* stream) {
+  const int threads = rows % R1 == 0 ? rows / R1 : 0;
   if (n < 1 || threads < 32 || threads > MAX_WARPS * 32 || threads % 32 != 0 ||
       (dtype != 0 && dtype != 1) || op_ < 0 || op_ > 2 || (reverse != 0 && reverse != 1) ||
       (reinterpret_cast<uintptr_t>(scratch) & 7) != 0 ||

@@ -1,7 +1,7 @@
 """Public routing wrappers: the MoE router (``moe_route``: padding) and
-the shuffle exchange's router (``bucket_route``: sentinel padding on the
-CPU, empty input), which reuses the MoE router's capacity-ordinal
-technique. The tensors' device picks kernel or plain version.
+the shuffle exchange's router (``bucket_route``: empty input), which
+reuses the MoE router's capacity-ordinal technique. The tensors' device
+picks kernel or plain version.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ def bucket_route(dest: torch.Tensor, p: int, capacity: int, block: int = 512):
     counts (p,) i32) — bit-identical to the stable-argsort formulation in
     core/shuffle._pack_exchange (and to ``bucket_route_ref``). The tensor's
     device picks kernel or plain version; the kernel masks its ragged tail
-    itself, so a CUDA tensor is not padded."""
+    itself, so nothing is padded."""
     (N,) = dest.shape
     dev = dest.device
     if N == 0:
@@ -43,13 +43,4 @@ def bucket_route(dest: torch.Tensor, p: int, capacity: int, block: int = 512):
                 torch.zeros(0, dtype=torch.bool, device=dev),
                 torch.zeros(p, dtype=torch.int32, device=dev))
     d = dest.to(torch.int32)
-    if d.is_cuda:
-        return bucket_route_fwd(d.contiguous(), p=p, capacity=capacity, block=block)
-    pad = (-N) % block if N > block else 0
-    if pad:
-        # the sentinel p one-hots to an all-zero row: padding neither
-        # claims ordinals nor inflates counts
-        d = torch.cat([d, d.new_full((pad,), p)])
-    pos, keep, counts = bucket_route_fwd(d.contiguous(), p=p, capacity=capacity,
-                                         block=block)
-    return pos[:N], keep[:N], counts
+    return bucket_route_fwd(d.contiguous(), p=p, capacity=capacity, block=block)

@@ -29,11 +29,14 @@ work is one allocation, cut into the three outputs and the scratch.
 ``block`` selects the threads of a block, rounded to a power of two in
 [32, 512]; the block takes fewer warps where their tables (4 bytes a bucket
 each, and 4 more for the tile's counts) would pass ``TABLE_BYTES``, and a
-tile at least 16 rows a bucket.
+tile at least 16 rows a bucket. ``geometry`` decides both, and the wrapper
+passes them to the entry point, which takes any tile of whole batches of
+rounds for each warp: a tile is where this module says.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,10 +47,11 @@ from repro_torch.kernels.moe_route.ref import bucket_route_ref
 #: tile's counts, 8 bytes a bucket, in 128 KB of shared memory
 MAX_BUCKETS = 16 * 1024
 #: the warps' tables and the tile's counts in a block, at most, unless one
-#: warp's need more (``TABLE_BYTES`` in the source; so are the two below)
+#: warp's need more
 TABLE_BYTES = 48 * 1024
-#: a warp walks its rows 32 at a time, loading this many rounds' rows at once,
-#: and takes at least MIN_BATCHES such batches a tile
+#: a warp walks its rows 32 at a time, loading this many rounds' rows at once
+#: (``U`` in the source, which refuses a tile that is not whole batches of
+#: them), and takes at least MIN_BATCHES such batches a tile
 ROUNDS_AT_ONCE = 8
 MIN_BATCHES = 2
 #: a tile's rows, at least, per bucket
@@ -60,10 +64,12 @@ def _entry():
     if _fn is None:
         _fn = _cuda.entry("bucket_route", "bucket_route_fwd",
                           [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                          + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
+                          + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_void_p])
     return _fn
 
 
+@functools.lru_cache(maxsize=256)
 def geometry(p: int, block: int) -> tuple[int, int]:
     """(warps of a block, rows of a tile) for ``p`` buckets at ``block``."""
     warps = max(1, min(threads_for(block) // 32, TABLE_BYTES // (4 * p) - 1))
@@ -94,7 +100,8 @@ def outputs(n: int, p: int, scratch: int, device):
 @counted
 def bucket_route_fwd(dest: torch.Tensor, p: int, capacity: int,
                      block: int = 512):
-    """dest: (N,) int32 in [0, p] (p = padding sentinel). Returns (pos (N,)
+    """dest: (N,) int32 in [0, p] (p = padding sentinel; a row past it
+    routes as one to it). Returns (pos (N,)
     i32, keep (N,) bool, counts (p,) i32 — final per-destination demand).
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
@@ -109,6 +116,7 @@ def bucket_route_fwd(dest: torch.Tensor, p: int, capacity: int,
         raise ValueError(f"bucket_route kernel takes 1 <= p <= {MAX_BUCKETS} buckets "
                          f"(one warp's table of counts in 128 KB of shared memory), got {p}")
     n = dest.shape[0]
+    warps, rows = geometry(p, block)
     nbytes = scratch_bytes(n, p, block)
     pos, keep, counts, buf, off = outputs(n, p, nbytes, dest.device)
     if n == 0:
@@ -116,7 +124,7 @@ def bucket_route_fwd(dest: torch.Tensor, p: int, capacity: int,
         return pos, keep, counts
     dev, base = dest.device.index, buf.data_ptr()
     args = (dest.data_ptr(), base, base + 4 * n + 4 * p, base + 4 * n, n, p, capacity,
-            threads_for(block), base + off, nbytes)
+            warps, rows, base + off, nbytes)
     if dev == torch.cuda.current_device():
         err = _entry()(*args, torch._C._cuda_getCurrentRawStream(dev))
     else:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd_scan.prefix import op_identity, prefix_scan_fwd
+from repro_torch.kernels.ssd_scan.prefix import prefix_scan_fwd
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
 
 
@@ -42,23 +42,12 @@ def prefix_scan(x: torch.Tensor, op: str = "sum", block: int = 512,
     ``segment_totals``). Bool rides as i32 and is cast back. Bit-identical
     to ``prefix_scan_ref`` for integer dtypes and for float max/min. The
     tensor's device picks kernel or plain version; the kernel scans from
-    the tail and masks its ragged tail itself, so a CUDA tensor is neither
-    flipped nor padded."""
+    the tail and masks its ragged tail itself, so nothing is flipped or
+    padded."""
     (N,) = x.shape
     if N == 0:
         return x
     squeeze_bool = x.dtype == torch.bool
     v = x.to(torch.int32) if squeeze_bool else x
-    if v.is_cuda:
-        out = prefix_scan_fwd(v.contiguous(), op=op, block=block, reverse=reverse)
-        return out.to(torch.bool) if squeeze_bool else out
-    if reverse:
-        v = torch.flip(v, dims=(0,))
-    ident = op_identity(op, v.dtype)
-    pad = (-N) % block if N > block else 0
-    if pad:
-        v = torch.cat([v, v.new_full((pad,), ident)])
-    out = prefix_scan_fwd(v.contiguous(), op=op, block=block)[:N]
-    if reverse:
-        out = torch.flip(out, dims=(0,))
+    out = prefix_scan_fwd(v.contiguous(), op=op, block=block, reverse=reverse)
     return out.to(torch.bool) if squeeze_bool else out

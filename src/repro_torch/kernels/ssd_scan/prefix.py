@@ -23,7 +23,9 @@ plain version's bit for bit; integer sums wrap as torch's do.
 
 ``block`` selects the threads of a block, rounded to a power of two in
 [32, 512], each scanning 16 rows, as for the segmented scan: the
-registry's autotune passes ``segment_totals``' tuned block through.
+registry's autotune passes ``segment_totals``' tuned block through. The
+wrapper gives the entry point the tile's rows (``rows_per_tile``), from
+which it takes its threads, so a tile is where this module says.
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ from repro_torch.kernels.ssd_scan.ref import prefix_scan_ref
 
 _OPS = {"sum": 0, "max": 1, "min": 2}
 _DTYPES = {torch.int32: 0, torch.float32: 1}
-#: rows a thread scans (``R1`` in the source)
+#: rows a thread scans (``R1`` in the source, which refuses a tile that is
+#: not whole threads of them, each block's threads in [32, 512])
 ROWS_PER_THREAD = 16
 _fn = None
 
@@ -94,7 +97,7 @@ def prefix_scan_fwd(x: torch.Tensor, op: str = "sum", block: int = 512,
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         err = _entry()(x.data_ptr(), out.data_ptr(), n, _DTYPES[x.dtype], _OPS[op],
-                       int(bool(reverse)), threads_for(block), scratch.data_ptr(), nbytes,
+                       int(bool(reverse)), rows_per_tile(block), scratch.data_ptr(), nbytes,
                        torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.raise_on_error("segment_reduce", err, "prefix_scan")
     count_launch(prefix_scan_fwd, (tuple(x.shape), op, bool(reverse)))

@@ -13,8 +13,10 @@ from a seed and fed to both.
 
 Integers, max/min and integer-valued f32 must match bit for bit (NaN rows
 where the reference has them); random f32 sums to rtol 1e-5, atol 1e-4 (the
-association order differs), the tolerance chip_smoke.py holds the kernel
-to on the card. Router ordinals, keep flags and counts bit for bit.
+association order differs). On the card chip_smoke.py holds the kernel's
+random f32 sums against the scan in float64: their largest error at most
+``F32_SUM_ERR_RATIO`` times torch.cumsum's own. Router ordinals, keep flags
+and counts bit for bit.
 
 chip_smoke.py holds the CUDA kernels against the plain versions on the card.
 """
@@ -149,10 +151,13 @@ def _dests(kind, n, p, seed):
     d = rng.integers(0, p, n).astype(np.int32)
     if kind == "sentinel":  # a fifth of the rows to the sentinel p
         d[rng.random(n) < 0.2] = p
+    if kind == "past":  # a fifth past it, some whose low bits name a bucket
+        past = rng.random(n) < 0.2
+        d[past] = p + rng.integers(1, 3 * p + 3, int(past.sum()))
     return d
 
 
-@pytest.mark.parametrize("kind", ["random", "sentinel", "one"])
+@pytest.mark.parametrize("kind", ["random", "sentinel", "past", "one"])
 @pytest.mark.parametrize("p,n,tile,warps", [
     (2, 600, 64, 2),     # tiles of 64 rows, 32 rows a warp: runs cross every edge
     (5, 601, 96, 3),     # a ragged tail
@@ -161,8 +166,9 @@ def _dests(kind, n, p, seed):
 ])
 def test_router_mirror_matches_the_jax_kernel(p, n, tile, warps, kind):
     """C below the demand of the fullest bucket, so keep drops rows; all
-    rows to one bucket across every tile; sentinel rows that claim no
-    ordinal; bit for bit against the Pallas kernel and the plain version."""
+    rows to one bucket across every tile; rows to the sentinel or past it,
+    which claim no ordinal; bit for bit against the Pallas kernel and the
+    plain version."""
     d = _dests(kind, n, p, p + n)
     C = max(1, n // p // 2)
     got = bucket_route_lookback(torch.from_numpy(d), p, C, tile, warps)
