@@ -2,10 +2,11 @@
 """Smoke run of the torch port (``src/repro_torch``) on one NVIDIA card.
 
 Drives the port's main paths through the entry points a user calls — the
-paper's hybrid wordcount on ``p = 8`` virtual executor ranks, then three
-model families served through ``ServeFrontDoor`` (Qwen3-14B, Mamba2-780M,
-Mixtral-8x7B) — holds every hand-written kernel against its plain torch
-version at the shapes those paths gave it, and reports. Run from the
+paper's hybrid wordcount on ``p = 8`` virtual executor ranks, the paper's
+evaluation apps in ignis and spark mode, then three model families served
+through ``ServeFrontDoor`` (Qwen3-14B, Mamba2-780M, Mixtral-8x7B) — holds
+every hand-written kernel against its plain torch version at the shapes
+those paths gave it, and reports. Run from the
 repository root:
 
     PYTHONPATH=src python3 chip_smoke.py          # N = 2^26 words, p = 8
@@ -65,7 +66,35 @@ non-zero):
              the library call; the prefix scan also from the tail through
              its wrapper and at op sum beside ``torch.cumsum``, the bucket
              router also by its wrapper's host µs per call;
-4. qwen,   — after the previous phase's memory is released, each model
+4. apps    — after the hybrid phase's memory is released, the paper's
+             evaluation apps (``repro_torch.apps``) on ``p = 8`` ranks, each
+             at full size in ignis mode (``APPS``), cold then warm: TeraSort
+             (2^26 int32 keys through ``map → sort → count``; the sorted keys
+             equal ``np.sort``, the warm run retries no overflow and builds
+             no wide plan), PageRank (2^16 vertices, 2^18 edges, 5
+             iterations; ranks against a float64 numpy oracle and against
+             the ``ignis.kernels=off`` run, every ``segment_totals`` call
+             launching the CUDA segmented and prefix scans and every routed
+             exchange the bucket router), transitive closure (2^16
+             vertices and edges, 10 rounds; the pair set equals a numpy
+             oracle's, every routed exchange on the router), K-Means (2^22
+             points of 32 dims, 16 centres, 20 iterations: on the device
+             and with a driver evaluation per iteration, against each other,
+             the last step against numpy's float64 step from the centres
+             before it; ``kmeans_mpi`` through ``worker.call``),
+             Minebench (2^16 blocks of 16 transactions, 64 nonces at 12
+             bits; on one worker and on two with ``import_data`` between
+             them; 1024 sampled blocks' roots and nonces against a host
+             SHA-256 held to ``hashlib``), the stencil (a 16384 x 16384 f32
+             grid, 100 iterations) and CG (2^24 rows, 50 iterations), each
+             natively and through ``worker.call`` (equal bit for bit; the
+             warm call a plan-cache hit) and against numpy. Each app
+             but the native two also runs in ``ignis.mode=spark`` at a shared
+             size (K-Means: the driver evaluation at full size) and reports
+             the spark/ignis ratio, the pipe's wall, the warm wall against
+             the device's busy time (``torch.profiler``), peak memory and
+             the hybrid kernels' launches; no app may fall back;
+5. qwen,   — after the previous phase's memory is released, each model
    mamba,    (random bf16 weights from a seeded generator) serves 8 requests
    mixtral   of 512–2048 prompt tokens x 32 new tokens on 4 slots of a
              4096-position slab, each decode tick an IJob task of kind
@@ -959,6 +988,678 @@ def kernel_checks(main_launches, reps: int):
                f"torch.cumsum {row['cumsum_ms']:.4f} ms" if "sum_ms" in row else "")
             + (f"; wrapper host {row['host_us']:.2f} us per call" if "host_us" in row else ""))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the paper's evaluation apps (phase apps)
+# ---------------------------------------------------------------------------
+
+#: the apps phase's sizes: full size in ignis mode, and the shared size of
+#: the ignis/spark comparison. Two counts are cut. PageRank runs 2^18 edges
+#: over 2^16 vertices, not 2^22 over 2^20: every wide op of its loop pads
+#: its output to p times its input's capacity (as the reference's does),
+#: and the action holds every frame of the 5 iterations, some 58 GiB at
+#: 2^18 edges on the card. Transitive closure runs 2^16 vertices and
+#: edges, not 2^18: ``distinct`` keys an (a, b) pair by the reference's
+#: default packing ``(a << 16) | (b & 0xFFFF)``, which holds vertex ids
+#: below 2^16 only (the phase counts, from its host oracle, the pairs at
+#: 2^18 that share a key).
+APPS = dict(
+    terasort=dict(n=1 << 26, spark_n=1 << 18),
+    pagerank=dict(vertices=1 << 16, edges=1 << 18, iters=5, spark=(1 << 12, 1 << 14)),
+    tc=dict(vertices=1 << 16, edges=1 << 16, rounds=10, matches=16, spark=(1 << 10, 1 << 10),
+            packed_check=(1 << 18, 1 << 18)),
+    kmeans=dict(n=1 << 22, d=32, k=16, iters=20),
+    minebench=dict(blocks=1 << 16, txs=16, iters=64, bits=12, spark_blocks=1 << 12,
+                   sample=1024),
+    stencil=dict(rows=16384, cols=16384, iters=100, check_iters=2),
+    cg=dict(n=1 << 24, iters=50),
+)
+#: the device the phase runs on (only a rehearsal on the CPU changes it)
+APP_DEVICE = "cuda"
+PAGERANK_RTOL = 1e-5  # f32 ranks against the f64 oracle, and kernels against off
+KMEANS_ATOL = 5e-3  # centres: f32 sums of some 2^18 points a centre (GEMM order)
+STENCIL_ATOL = 1e-6  # 2 Jacobi steps against numpy in f32, the same adds
+CG_REL_L2 = 1e-5  # 50 f32 CG steps against numpy's f64 CG
+PIPE = Spans()  # spark mode's driver pipe (``IWorker._pipe_block``)
+APP_REPORT: dict = {}
+
+
+def app_worker(mode="ignis", kernels="auto", kind="python", p=8):
+    from repro_torch.core import ICluster, IProperties, IWorker
+
+    return IWorker(ICluster(IProperties({
+        "ignis.device": APP_DEVICE, "ignis.executor.instances": str(p),
+        "ignis.kernels": kernels, "ignis.mode": mode})), kind)
+
+
+def timed(fn):
+    """(fn's result, host ms to the device's end)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def device_busy_ms(fn):
+    """(host ms to the device's end, device busy ms) of one call of ``fn``
+    under ``torch.profiler`` (CUDA activity; the sum of the device's kernel
+    and copy times: one stream, so they do not overlap); busy is None where
+    the profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, ms = timed(fn)
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA)
+    return ms, (us / 1e3 if us else None)
+
+
+def start_app():
+    """Release the previous app's memory and zero every counter the next
+    run reads: kernel launches, ``segment_totals`` calls and routed
+    exchanges, the peak of device memory, ``to_host`` and pipe spans."""
+    import gc
+
+    import torch
+
+    from repro_torch import kernels as K
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    SEG_CALLS.update(path=0, sweep=0)
+    ROUTE_CALLS.update(path=0, sweep=0)
+    TO_HOST.take(), PIPE.take()
+
+
+def app_launches(name, must=()):
+    """The hybrid kernels' launches since ``start_app`` (autotune sweeps
+    apart); every kernel in ``must`` launched, and each ``segment_totals``
+    call (routed exchange) launched the scans (the router) once."""
+    from repro_torch import kernels as K
+
+    fns = K.launch_counters()
+    got = {k: fns[k].launches for k in HYBRID_KERNELS}
+    for k in must:
+        check(got[k] > 0, f"apps: {name}: kernel {k} was never launched")
+    if "segment_reduce" in must:
+        for k in ("segment_reduce", "prefix_scan"):
+            check(got[k] == SEG_CALLS["path"],
+                  f"apps: {name}: {SEG_CALLS['path']} segment_totals calls against "
+                  f"{got[k]} {k} launches")
+    if "bucket_route" in must:
+        check(got["bucket_route"] == ROUTE_CALLS["path"],
+              f"apps: {name}: {ROUTE_CALLS['path']} routed exchanges against "
+              f"{got['bucket_route']} bucket_route launches")
+    return got
+
+
+def no_fallback(name, *workers):
+    for w in workers:
+        check(w.metrics("kernels")["kernel_fallbacks"] == 0, f"apps: {name}: a kernel fell back")
+
+
+def report(name, **kw):
+    """Log and keep one app's numbers: the peak of device memory since
+    ``start_app``, and what the caller measured."""
+    import torch
+
+    kw.update(peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    if kw.get("wall_ms") and kw.get("busy_ms") is not None:
+        kw["idle_share"] = round(max(0.0, 1 - kw["busy_ms"] / kw["wall_ms"]), 3)
+    APP_REPORT[name] = kw
+    log(f"apps: {name}: " + ", ".join(f"{k} {v}" for k, v in kw.items()))
+
+
+def spark_ratio(run, label, prefix=""):
+    """``run(worker)`` on an ignis and on a spark worker, each called twice:
+    ({mode: the second call's result, which the caller holds the modes
+    to}, {the second calls' ms, their spark/ignis ratio, and the wall the
+    spark run spent in the driver pipe})."""
+    out, ms = {}, {}
+    for mode in ("ignis", "spark"):
+        w = app_worker(mode)
+        run(w)  # cold: plans, sweeps
+        PIPE.take()
+        out[mode], ms[mode] = timed(lambda: run(w))
+        pipe = PIPE.take()
+        no_fallback(f"{label} ({mode})", w)
+    return out, {f"{prefix}ignis_ms": round(ms["ignis"], 1),
+                 f"{prefix}spark_ms": round(ms["spark"], 1),
+                 f"{prefix}spark_over_ignis": round(ms["spark"] / ms["ignis"], 2),
+                 f"{prefix}spark_pipe_ms": round(pipe[1], 1),
+                 f"{prefix}spark_pipe_blocks": pipe[0]}
+
+
+def _valid_rows(df):
+    """The valid rows of a frame's blocks, concatenated in block order, as
+    host arrays (one per leaf) — read through ``_blocks()``, never through
+    ``collect()``'s row dicts."""
+    import numpy as np
+
+    from repro_torch.core import tree
+
+    blocks = df._blocks()
+    valid = [b.valid.cpu().numpy() for b in blocks]
+    leaves = [tree.leaves(b.data) for b in blocks]
+    return [np.concatenate([ls[i].cpu().numpy()[v] for ls, v in zip(leaves, valid)])
+            for i in range(len(leaves[0]))]
+
+
+def app_terasort():
+    import numpy as np
+
+    cfg = APPS["terasort"]
+    start_app()
+    keys = np.random.default_rng(0).integers(0, 2**31 - 1, cfg["n"], dtype=np.int32)
+
+    def run(w, k=keys):
+        return w.parallelize(k).map(lambda x: x).sort()
+
+    w = app_worker()
+    df = run(w)
+    n, cold = timed(df.count)
+    start_app()
+    before = w.metrics("shuffle")
+    n2, warm = timed(df.count)
+    after = w.metrics("shuffle")
+    d_retry = after["overflow_retries"] - before["overflow_retries"]
+    d_plans = after["wide_plan_misses"] - before["wide_plan_misses"]
+    check(n == n2 == cfg["n"], f"apps: terasort counted {n}, {n2} of {cfg['n']} keys")
+    check(d_retry == 0 and d_plans == 0,
+          f"apps: terasort warm run: {d_retry} overflow retries, {d_plans} new wide plans")
+    busy_wall, busy = device_busy_ms(df.count)
+    (got,) = _valid_rows(df)
+    check(np.array_equal(got, np.sort(keys)), "apps: terasort keys differ from np.sort")
+    no_fallback("terasort", w)
+    del df, got
+    small = keys[: cfg["spark_n"]]
+    out, spark = spark_ratio(lambda w: _valid_rows(run(w, small))[0], "terasort")
+    for mode, rows in out.items():
+        check(np.array_equal(rows, np.sort(small)), f"apps: terasort ({mode}) differs from np.sort")
+    report("terasort", n=cfg["n"], cold_ms=round(cold, 1), wall_ms=round(warm, 1),
+           mkeys_per_s=round(cfg["n"] / warm / 1e3, 2), busy_ms=busy, busy_wall_ms=round(busy_wall, 1),
+           new_overflow_retries=d_retry, new_wide_plans=d_plans,
+           launches=app_launches("terasort"), spark_n=cfg["spark_n"], **spark)
+
+
+def pagerank_oracle(edges, n_vertices, iters, damping=0.85):
+    """float64 PageRank over the vertex list (``pagerank_reference``'s
+    iteration with ``np.bincount``): (sorted vertices, ranks)."""
+    import numpy as np
+
+    src, dst = edges[:, 0], edges[:, 1]
+    deg = np.bincount(src, minlength=n_vertices).astype(np.float64)
+    verts = np.unique(edges)
+    ranks = np.zeros(n_vertices)
+    ranks[verts] = 1.0
+    for _ in range(iters):
+        sums = np.bincount(dst, weights=ranks[src] / deg[src], minlength=n_vertices)
+        ranks = np.zeros(n_vertices)
+        ranks[verts] = (1 - damping) + damping * sums[verts]
+    return verts, ranks[verts]
+
+
+def _rank_array(ranks: dict, verts):
+    import numpy as np
+
+    check(sorted(ranks) == [int(v) for v in verts], "apps: pagerank's vertex set differs")
+    return np.fromiter((ranks[int(v)] for v in verts), np.float64, len(verts))
+
+
+def _max_rel(got, want):
+    import numpy as np
+
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+
+
+def app_pagerank():
+    from repro_torch.apps.graph import make_graph, pagerank
+
+    cfg = APPS["pagerank"]
+    start_app()
+    edges = make_graph(cfg["vertices"], cfg["edges"], seed=0)
+    verts, want = pagerank_oracle(edges, cfg["vertices"], cfg["iters"])
+    w = app_worker()
+    _, cold = timed(lambda: pagerank(w, edges, iters=cfg["iters"]))
+    start_app()
+    ranks, warm = timed(lambda: pagerank(w, edges, iters=cfg["iters"]))
+    launches = app_launches("pagerank", must=HYBRID_KERNELS)
+    calls = dict(segment_totals=SEG_CALLS["path"], routed_exchanges=ROUTE_CALLS["path"])
+    to_host = TO_HOST.take()
+    busy_wall, busy = device_busy_ms(lambda: pagerank(w, edges, iters=cfg["iters"]))
+    got = _rank_array(ranks, verts)
+    err = _max_rel(got, want)
+    check(err <= PAGERANK_RTOL, f"apps: pagerank: max relative error {err} against the oracle")
+    off = _rank_array(pagerank(app_worker(kernels="off"), edges, iters=cfg["iters"]), verts)
+    err_off = _max_rel(got, off)
+    check(err_off <= PAGERANK_RTOL,
+          f"apps: pagerank: max relative difference {err_off} from ignis.kernels=off")
+    no_fallback("pagerank", w)
+    small = make_graph(*cfg["spark"], seed=0)
+    sv, swant = pagerank_oracle(small, cfg["spark"][0], cfg["iters"])
+    out, spark = spark_ratio(
+        lambda w: _rank_array(pagerank(w, small, iters=cfg["iters"]), sv), "pagerank")
+    for mode, got_s in out.items():
+        e = _max_rel(got_s, swant)
+        check(e <= PAGERANK_RTOL, f"apps: pagerank ({mode}, small): max relative error {e}")
+    report("pagerank", vertices=len(verts), edges=len(edges), iters=cfg["iters"],
+           cold_ms=round(cold, 1), wall_ms=round(warm, 1),
+           edge_iters_per_s=round(len(edges) * cfg["iters"] / warm * 1e3),
+           busy_ms=busy, busy_wall_ms=round(busy_wall, 1),
+           warm_to_host_ms=round(to_host[1], 1), max_rel_err_oracle=err,
+           max_rel_diff_kernels_off=err_off, launches=launches, **calls,
+           spark_graph=list(cfg["spark"]), **spark)
+
+
+def tc_oracle(edges, n_vertices, max_rounds):
+    """The closure ``transitive_closure`` computes: pairs as sorted int64
+    codes ``a * V + b``, extended by one edge a round until nothing changes
+    or ``max_rounds`` rounds; (codes, rounds)."""
+    import numpy as np
+
+    src, dst = edges[:, 0].astype(np.int64), edges[:, 1].astype(np.int64)
+    order = np.argsort(src, kind="stable")
+    s_src, s_dst = src[order], dst[order]
+    ids = np.arange(n_vertices)
+    lo, hi = np.searchsorted(s_src, ids), np.searchsorted(s_src, ids, "right")
+    codes = np.unique(src * n_vertices + dst)
+    old, rounds = 0, 0
+    while len(codes) != old and rounds < max_rounds:
+        old = len(codes)
+        x, y = codes // n_vertices, codes % n_vertices
+        cnt = hi[y] - lo[y]
+        at = np.repeat(lo[y] - (np.cumsum(cnt) - cnt), cnt) + np.arange(cnt.sum())
+        codes = np.unique(np.concatenate([codes, np.repeat(x, cnt) * n_vertices + s_dst[at]]))
+        rounds += 1
+    return codes, rounds
+
+
+def _tc_codes(tc, n_vertices):
+    import numpy as np
+
+    a, b = _valid_rows(tc)
+    return np.sort(a.astype(np.int64) * n_vertices + b)
+
+
+def app_tc():
+    import numpy as np
+
+    from repro_torch.apps.graph import make_graph, transitive_closure
+
+    cfg = APPS["tc"]
+    start_app()
+    # the cut: at 2^18 vertices the default packing of distinct keys collides
+    big_v, big_e = cfg["packed_check"]
+    codes, _ = tc_oracle(make_graph(big_v, big_e, seed=3), big_v, cfg["rounds"])
+    a, b = (codes // big_v).astype(np.int32), (codes % big_v).astype(np.int32)
+    shared = len(codes) - len(np.unique((a << 16) | (b & 0xFFFF)))
+    log(f"apps: tc: at {big_v} vertices, {big_e} edges the closure after {cfg['rounds']} rounds "
+        f"has {len(codes)} pairs, of which {shared} share a packed distinct key with another "
+        f"(so the phase runs {cfg['vertices']} vertices)")
+    del codes, a, b
+    nv = cfg["vertices"]
+    edges = make_graph(nv, cfg["edges"], seed=3)
+    want, rounds = tc_oracle(edges, nv, cfg["rounds"])
+    w = app_worker()
+
+    def run(w, e=edges):
+        return transitive_closure(w, e, max_rounds=cfg["rounds"], max_matches=cfg["matches"])
+
+    _, cold = timed(lambda: run(w))
+    start_app()
+    tc, warm = timed(lambda: run(w))
+    launches = app_launches("tc", must=("bucket_route",))
+    routed = ROUTE_CALLS["path"]
+    busy_wall, busy = device_busy_ms(lambda: run(w))
+    got = _tc_codes(tc, nv)
+    check(np.array_equal(got, want),
+          f"apps: tc: {len(got)} pairs against the oracle's {len(want)} (or other pairs)")
+    no_fallback("tc", w)
+    sv, se = cfg["spark"]
+    small = make_graph(sv, se, seed=3)
+    swant, _ = tc_oracle(small, sv, cfg["rounds"])
+    out, spark = spark_ratio(lambda w: _tc_codes(run(w, small), sv), "tc")
+    for mode, got_s in out.items():
+        check(np.array_equal(got_s, swant), f"apps: tc ({mode}, small) differs from the oracle")
+    report("tc", vertices=nv, edges=len(edges), rounds=rounds, pairs=len(got),
+           packed_key_collisions_at_2_18=shared, cold_ms=round(cold, 1), wall_ms=round(warm, 1),
+           pairs_per_s=round(len(got) / warm * 1e3), busy_ms=busy,
+           busy_wall_ms=round(busy_wall, 1), launches=launches, routed_exchanges=routed,
+           spark_graph=[sv, se], **spark)
+
+
+def kmeans_oracle_step(pts, centres):
+    """One float64 K-Means step from ``centres`` in numpy (distances by the
+    ‖p‖² - 2p·c + ‖c‖² expansion, sums by a one-hot product): (new
+    centres, the assignment it made)."""
+    import numpy as np
+
+    p = pts.astype(np.float64)
+    c = centres.astype(np.float64)
+    asg = np.argmin((p * p).sum(1)[:, None] - 2 * p @ c.T + (c * c).sum(1)[None], axis=1)
+    oh = np.zeros((len(p), len(c)))
+    oh[np.arange(len(p)), asg] = 1.0
+    return (oh.T @ p) / np.maximum(oh.sum(0), 1.0)[:, None], asg
+
+
+def app_kmeans():
+    import numpy as np
+    import torch
+
+    from repro_torch.apps.kmeans import (_assign, kmeans_driver_eval, kmeans_on_device,
+                                         make_points)
+
+    cfg = APPS["kmeans"]
+    start_app()
+    n, k = cfg["n"], cfg["k"]
+    pts, _ = make_points(n, cfg["d"], k, seed=0)
+    init = pts[np.random.default_rng(0).choice(n, k, replace=False)]
+    dev = torch.device(APP_DEVICE)
+    p_dev, c0 = torch.from_numpy(pts).to(dev), torch.from_numpy(init).to(dev)
+    _, cold = timed(lambda: kmeans_on_device(p_dev, c0, cfg["iters"]))
+    torch.cuda.reset_peak_memory_stats()
+    on_dev, warm = timed(lambda: kmeans_on_device(p_dev, c0, cfg["iters"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy_wall, busy = device_busy_ms(lambda: kmeans_on_device(p_dev, c0, cfg["iters"]))
+    drv, drv_ms = timed(lambda: kmeans_driver_eval(p_dev, init, cfg["iters"]))
+    check(torch.equal(_assign(p_dev, on_dev), _assign(p_dev, drv)),
+          "apps: kmeans: on-device and driver-evaluated assignments differ")
+    d_err = max_err(on_dev, drv)
+    check(d_err <= KMEANS_ATOL, f"apps: kmeans: on-device against driver centres {d_err}")
+    # the last step against float64 numpy from the device's centres before it
+    # (a float64 loop from the start drifts from f32's at near-tied points,
+    # and each of its 20 steps costs seconds of host time)
+    before = kmeans_on_device(p_dev, c0, cfg["iters"] - 1)
+    want, want_asg = kmeans_oracle_step(pts, before.cpu().numpy())
+    o_err = float(np.abs(on_dev.cpu().numpy() - want).max())
+    moved = int((_assign(p_dev, before).cpu().numpy() != want_asg).sum())
+    check(o_err <= KMEANS_ATOL,
+          f"apps: kmeans: centres {o_err} from the float64 step ({moved} points assigned "
+          f"otherwise)")
+    w = app_worker(kind="cpp")
+    w.load_library("repro_torch.apps.kmeans")
+    df = w.parallelize(p_dev)
+    (cn,), call_ms = timed(lambda: _valid_rows(
+        w.call("kmeans_mpi", df, iters=cfg["iters"], k=k, seed=0)))
+    check(cn.shape == (k, cfg["d"]) and bool(np.isfinite(cn).all()),
+          f"apps: kmeans_mpi gave centres of shape {cn.shape}, or non-finite ones")
+    no_fallback("kmeans", w)
+    report("kmeans", points=n, d=cfg["d"], k=k, iters=cfg["iters"], cold_ms=round(cold, 1),
+           wall_ms=round(warm, 1), point_iters_per_s=round(n * cfg["iters"] / warm * 1e3),
+           busy_ms=busy, busy_wall_ms=round(busy_wall, 1), loop_peak_gib=round(peak, 3),
+           max_abs_diff_driver=d_err, max_abs_err_oracle=o_err,
+           points_assigned_otherwise_than_oracle=moved, kmeans_mpi_ms=round(call_ms, 1),
+           launches=app_launches("kmeans"), ignis_ms=round(warm, 1),
+           spark_ms=round(drv_ms, 1), spark_over_ignis=round(drv_ms / warm, 2))
+
+
+def sha256_compress_np(w):
+    """The SHA-256 compression of one 16-word chunk from H0, in numpy
+    uint32 (a host implementation apart from the port's): (..., 16) →
+    (..., 8)."""
+    import numpy as np
+
+    with np.errstate(over="ignore"):  # uint32 adds wrap, as SHA-256's do
+        return _sha256_compress_np(w)
+
+
+def _sha256_compress_np(w):
+    import numpy as np
+
+    from repro_torch.apps.sha256 import _H0, _K
+
+    def rotr(x, n):
+        return (x >> np.uint32(n)) | (x << np.uint32(32 - n))
+
+    w = [w[..., i].astype(np.uint32) for i in range(16)]
+    for i in range(16, 64):
+        a, b = w[i - 15], w[i - 2]
+        w.append(w[i - 16] + (rotr(a, 7) ^ rotr(a, 18) ^ (a >> np.uint32(3))) + w[i - 7]
+                 + (rotr(b, 17) ^ rotr(b, 19) ^ (b >> np.uint32(10))))
+    st = [np.full(w[0].shape, h, np.uint32) for h in _H0]
+    for i in range(64):
+        a, b, c, d, e, f, g, h = st
+        t1 = h + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)) + ((e & f) ^ (~e & g)) + _K[i] + w[i]
+        t2 = (rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)) + ((a & b) ^ (a & c) ^ (b & c))
+        st = [t1 + t2, a, b, c, d + t1, e, f, g]
+    return np.stack(st, -1) + _H0
+
+
+def _anchor_sha_to_hashlib():
+    """The host compression, on messages padded as SHA-256 pads them, is
+    hashlib.sha256."""
+    import hashlib
+
+    import numpy as np
+
+    for msg in (b"", b"abc", b"a" * 55, bytes(range(36))):
+        buf = np.zeros(64, np.uint8)
+        buf[: len(msg)] = np.frombuffer(msg, np.uint8)
+        buf[len(msg)] = 0x80
+        buf[-8:] = np.frombuffer((len(msg) * 8).to_bytes(8, "big"), np.uint8)
+        words = buf.reshape(16, 4).astype(np.uint32)
+        words = (words[:, 0] << 24) | (words[:, 1] << 16) | (words[:, 2] << 8) | words[:, 3]
+        d = sha256_compress_np(words)
+        check(b"".join(int(x).to_bytes(4, "big") for x in d).hex()
+              == hashlib.sha256(msg).hexdigest(),
+              f"apps: minebench: the host SHA-256 differs from hashlib on {msg!r}")
+
+
+def minebench_oracle(blocks, iters, bits):
+    """Merkle roots and (first nonce under the target, found) per block, on
+    the host."""
+    import numpy as np
+
+    h = sha256_compress_np(blocks)
+    while h.shape[-2] > 1:
+        if h.shape[-2] % 2:
+            h = np.concatenate([h, h[..., -1:, :]], axis=-2)
+        h = sha256_compress_np(np.concatenate([h[..., 0::2, :], h[..., 1::2, :]], -1))
+    roots = h[..., 0, :]
+    hdr = np.zeros((len(roots), iters, 16), np.uint32)
+    hdr[..., :8] = roots[:, None]
+    hdr[..., 8] = np.arange(iters, dtype=np.uint32)
+    hdr[..., 15] = 36 * 8
+    hit = sha256_compress_np(hdr)[..., 0] < (1 << (32 - bits))
+    found = hit.any(1)
+    return roots, np.where(found, hit.argmax(1), 0).astype(np.uint32), found
+
+
+def app_minebench():
+    import numpy as np
+
+    from repro_torch.apps.minebench import make_blocks, make_map2_fn, map1_fn
+    from repro_torch.core import IWorker
+
+    cfg = APPS["minebench"]
+    start_app()
+    _anchor_sha_to_hashlib()
+    blocks = make_blocks(cfg["blocks"], cfg["txs"], seed=0)
+    map2 = make_map2_fn(cfg["iters"], cfg["bits"])
+
+    def single(w, b=blocks):
+        return _valid_rows(w.parallelize(b).map(map1_fn).map(map2))
+
+    def multi(w1, b=blocks):
+        w2 = IWorker(w1.cluster, "cpp")
+        roots = w1.parallelize(b).map(map1_fn).cache()
+        return _valid_rows(roots), _valid_rows(w2.import_data(roots).map(map2))
+
+    w = app_worker()
+    _, cold = timed(lambda: single(w))
+    (found, nonce), warm = timed(lambda: single(w))
+    busy_wall, busy = device_busy_ms(lambda: single(w))
+    check(nonce.dtype == np.uint32 and found.dtype == np.bool_,
+          f"apps: minebench rows are {nonce.dtype}, {found.dtype}, not uint32, bool")
+    ((roots,), (found2, nonce2)), multi_ms = timed(lambda: multi(w))
+    check(np.array_equal(nonce, nonce2) and np.array_equal(found, found2),
+          "apps: minebench: two workers differ from one")
+    pick = np.sort(np.random.default_rng(1).choice(cfg["blocks"], cfg["sample"], replace=False))
+    r_want, n_want, f_want = minebench_oracle(blocks[pick], cfg["iters"], cfg["bits"])
+    check(np.array_equal(roots[pick], r_want), "apps: minebench roots differ from the host's")
+    check(np.array_equal(nonce[pick], n_want) and np.array_equal(found[pick], f_want),
+          "apps: minebench (nonce, found) differ from the host's")
+    no_fallback("minebench", w)
+    small = blocks[: cfg["spark_blocks"]]
+    out, spark = spark_ratio(lambda w: single(w, small), "minebench")
+    out2, spark2 = spark_ratio(lambda w: multi(w, small)[1], "minebench two workers",
+                               prefix="two_workers_")
+    for got in (out["spark"], out2["ignis"], out2["spark"]):
+        check(all(np.array_equal(a, b) for a, b in zip(got, out["ignis"])),
+              "apps: minebench (small): the modes or variants differ")
+    report("minebench", blocks=cfg["blocks"], txs=cfg["txs"], nonces=cfg["iters"],
+           difficulty_bits=cfg["bits"], found=int(found.sum()), cold_ms=round(cold, 1),
+           wall_ms=round(warm, 1), blocks_per_s=round(cfg["blocks"] / warm * 1e3),
+           two_workers_ms=round(multi_ms, 1), busy_ms=busy, busy_wall_ms=round(busy_wall, 1),
+           sampled=cfg["sample"], spark_blocks=cfg["spark_blocks"], **spark, **spark2)
+
+
+def _native_pair(w, app, native, x, iters):
+    """The native program and ``worker.call`` of its wrapped form: their
+    results (equal bit for bit), each one's cold ms, and each one's median
+    warm ms over three calls taken in turns (N F F N N F); every warm call
+    is a plan-cache hit and builds nothing."""
+    import torch
+
+    from repro_torch.core import comm
+
+    ranks, axis = w.context.comm()
+    df = w.parallelize(x)
+    fns = {"native": lambda: native(ranks, axis, x, iters),
+           "framework": lambda: w.call(app, df, iters=iters)._blocks()[0].data}
+    res, ms, warm = {}, {}, {"native": [], "framework": []}
+    for label, fn in fns.items():
+        _, ms[f"{label}_cold"] = timed(fn)
+    for label in ("native", "framework", "framework", "native", "native", "framework"):
+        before = comm.comm_stats()
+        res[label], t = timed(fns[label])
+        after = comm.comm_stats()
+        warm[label].append(t)
+        hits = after["coll_plan_hits"] - before["coll_plan_hits"]
+        misses = after["coll_plan_misses"] - before["coll_plan_misses"]
+        check(hits == 1 and misses == 0,
+              f"apps: {app} ({label}) warm call: {hits} plan hits, {misses} misses")
+    check(torch.equal(res["native"], res["framework"]),
+          f"apps: {app}: worker.call differs from the native program")
+    ms.update({label: sorted(v)[1] for label, v in warm.items()})
+    return res["native"], ms
+
+
+def app_stencil():
+    import numpy as np
+    import torch
+
+    from repro_torch.apps.stencil import stencil_native
+
+    cfg = APPS["stencil"]
+    start_app()
+    w = app_worker(kind="cpp")
+    w.load_library("repro_torch.apps.stencil")
+    g = torch.Generator(device=APP_DEVICE).manual_seed(0)
+    grid = torch.randn((cfg["rows"], cfg["cols"]), generator=g, device=APP_DEVICE)
+    out, ms = _native_pair(w, "stencil_app", stencil_native, grid, cfg["iters"])
+    check(bool(torch.isfinite(out).all()), "apps: stencil: a cell is not finite")
+    busy_wall, busy = device_busy_ms(lambda: stencil_native(*w.context.comm(), grid, cfg["iters"]))
+    ranks, axis = w.context.comm()
+    got = stencil_native(ranks, axis, grid, cfg["check_iters"]).cpu().numpy()
+    u = grid.cpu().numpy()
+    for _ in range(cfg["check_iters"]):
+        u = (np.roll(u, 1, 0) + np.roll(u, -1, 0) + np.roll(u, 1, 1) + np.roll(u, -1, 1)) * 0.25
+    err = float(np.abs(got - u).max())
+    check(err <= STENCIL_ATOL, f"apps: stencil: {err} from the numpy periodic Jacobi")
+    cells = cfg["rows"] * cfg["cols"] * cfg["iters"]
+    report("stencil", grid=[cfg["rows"], cfg["cols"]], iters=cfg["iters"],
+           native_cold_ms=round(ms["native_cold"], 1), wall_ms=round(ms["native"], 1),
+           framework_cold_ms=round(ms["framework_cold"], 1), framework_ms=round(ms["framework"], 1),
+           overhead_pct=round((ms["framework"] - ms["native"]) / ms["native"] * 100, 2),
+           cell_iters_per_s=round(cells / ms["native"] * 1e3), busy_ms=busy,
+           busy_wall_ms=round(busy_wall, 1), max_abs_err_numpy=err)
+
+
+def cg_oracle(b, iters):
+    """float64 CG on the 1-D Laplacian with Dirichlet ends, in numpy."""
+    import numpy as np
+
+    b = b.astype(np.float64)
+    x, r = np.zeros_like(b), b.copy()
+    q, rs, aq = r.copy(), r @ r, np.empty_like(b)
+    for _ in range(iters):
+        np.multiply(q, 2, out=aq)
+        aq[:-1] -= q[1:]
+        aq[1:] -= q[:-1]
+        alpha = rs / max(q @ aq, 1e-30)
+        x += alpha * q
+        r -= alpha * aq
+        rs_new = r @ r
+        q *= rs_new / max(rs, 1e-30)
+        q += r
+        rs = rs_new
+    return x
+
+
+def app_cg():
+    import numpy as np
+    import torch
+
+    from repro_torch.apps.stencil import cg_native
+
+    cfg = APPS["cg"]
+    start_app()
+    w = app_worker(kind="cpp")
+    w.load_library("repro_torch.apps.stencil")
+    b = np.random.default_rng(1).normal(size=cfg["n"]).astype(np.float32)
+    bt = torch.from_numpy(b).to(APP_DEVICE)
+    x, ms = _native_pair(w, "cg_app", cg_native, bt, cfg["iters"])
+    busy_wall, busy = device_busy_ms(lambda: cg_native(*w.context.comm(), bt, cfg["iters"]))
+    want = cg_oracle(b, cfg["iters"])
+    err = float(np.linalg.norm(x.cpu().numpy() - want) / np.linalg.norm(want))
+    check(err <= CG_REL_L2, f"apps: cg: relative L2 {err} from numpy's float64 CG")
+    report("cg", rows=cfg["n"], iters=cfg["iters"], native_cold_ms=round(ms["native_cold"], 1),
+           wall_ms=round(ms["native"], 1), framework_cold_ms=round(ms["framework_cold"], 1),
+           framework_ms=round(ms["framework"], 1),
+           overhead_pct=round((ms["framework"] - ms["native"]) / ms["native"] * 100, 2),
+           row_iters_per_s=round(cfg["n"] * cfg["iters"] / ms["native"] * 1e3), busy_ms=busy,
+           busy_wall_ms=round(busy_wall, 1), rel_l2_numpy=err)
+
+
+def apps_phase():
+    """The paper's evaluation apps on ``p = 8`` virtual ranks through the
+    port's entry points, each at full size in ignis mode and against the
+    spark-mode baseline at a shared size; every check fails the run."""
+    import torch
+
+    from repro_torch.core import IWorker
+
+    pipe_block = IWorker._pipe_block
+
+    def timed_pipe(self, b):
+        t0 = time.perf_counter()
+        out = pipe_block(self, b)
+        PIPE.add(t0, time.perf_counter())
+        return out
+
+    IWorker._pipe_block = timed_pipe
+    t0 = time.perf_counter()
+    start_app()
+    log(f"apps: start with {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    for app in (app_terasort, app_pagerank, app_tc, app_kmeans, app_minebench, app_stencil,
+                app_cg):
+        t = time.perf_counter()
+        app()
+        log(f"apps: {app.__name__[4:]} phase took {time.perf_counter() - t:.1f} s")
+    IWorker._pipe_block = pipe_block
+    start_app()
+    log(f"apps: all passed in {time.perf_counter() - t0:.1f} s, leaving "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+        f"summary {json.dumps(APP_REPORT)}")
 
 
 # ---------------------------------------------------------------------------
@@ -2002,6 +2703,7 @@ def main() -> int:
         moe_edge_checks()
         launches = main_path(args)
         rows = kernel_checks(launches, args.reps)
+        apps_phase()
         launches, _ = serve_qwen(args)
         rows.append(flash_row(launches, args.reps))
         launches, _ = serve_mamba(args)

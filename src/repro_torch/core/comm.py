@@ -7,13 +7,23 @@ Every routine takes an IContext (the communicator) and operates on flat
 ``allreduce`` a reduction over every row — so the same code runs on the CPU
 and on the card.
 
-This module carries the blocking call shape (``allreduce(ctx, x)``: the
-result is ready when the call returns) over the same plan cache and handle
-telemetry as the reference: each collective's body is built once per
-(collective, static args, operand avals, communicator) and cached in a
-process-wide LRU, and each call dispatches through a ``CollHandle`` that is
-awaited before returning. Where the tensors live on the card a handle wraps
-a CUDA event recorded on the current stream.
+Three call shapes per collective, as in the reference:
+
+* **blocking** — ``allreduce(ctx, x)``: dispatch + ``wait()``; the result is
+  ready when the call returns.
+* **nonblocking** — ``iallreduce(ctx, x) -> CollHandle``: the
+  MPI_Iallreduce shape. The work is queued (torch's CUDA calls return
+  before the card finishes) and the handle is the future: ``wait()`` is
+  MPI_Wait, ``test()`` MPI_Test. Where the tensors live on the card a
+  handle wraps a CUDA event recorded on the current stream, and is in
+  flight until that event completes.
+* **persistent** — ``persistent(ctx, "allreduce", x) -> CollPlan``: the
+  MPI_*_init / MPI_Start shape. Each collective's body is built once per
+  (collective, static args, operand avals, communicator) and cached in a
+  process-wide LRU; ``plan.start(x)`` re-invokes it. The i* and blocking
+  entry points route through the same cache, and ``persistent_program``
+  caches a whole native program the same way (``comm_stats()`` counts
+  calls, hits and misses as the reference does).
 
 Fault injection: ``handle.wait()`` of a still-pending handle passes the
 ``comm.handle`` site, so chaos plans can kill a collective between dispatch
@@ -258,11 +268,37 @@ def _aval(x) -> tuple:
     return tuple((tuple(l.shape), str(l.dtype)) for l in tree.leaves(x))
 
 
-def _run(ctx: IContext, coll: str, statics: tuple, x, build_plan) -> object:
-    """Blocking dispatch: plan lookup, one handle, await."""
-    fn = _engine.plan((coll, statics, _aval(x), ctx.key), build_plan)
-    _engine.stats_bump("coll_calls")
-    return CollHandle(coll, ctx, fn(ctx.place(x))).wait()
+class CollPlan:
+    """An initialised persistent collective (MPI_Allreduce_init analogue):
+    ``start()`` dispatches one invocation and returns its ``CollHandle``
+    (MPI_Start); calling the plan is the blocking facade. The body is
+    shared through the process-wide plan cache, so equivalent plans (same
+    collective, statics, avals, communicator) cost one build total."""
+
+    __slots__ = ("coll", "ctx", "_fn", "_transform", "_prep")
+
+    def __init__(self, coll: str, ctx, fn: Callable, transform=None, prep=None):
+        self.coll = coll
+        self.ctx = ctx
+        self._fn = fn
+        self._transform = transform
+        self._prep = prep  # operand placement on the communicator's device
+
+    def start(self, *operands) -> CollHandle:
+        """Dispatch one invocation (MPI_Start) → nonblocking handle."""
+        if self._prep is not None:
+            operands = self._prep(*operands)
+        _engine.stats_bump("coll_calls")
+        return CollHandle(self.coll, self.ctx, self._fn(*operands),
+                          transform=self._transform)
+
+    def __call__(self, *operands):
+        return self.start(*operands).wait()
+
+
+# ---------------------------------------------------------------------------
+# collective builders: each returns the CollPlan of one collective
+# ---------------------------------------------------------------------------
 
 
 def _ranked(ctx: IContext, x) -> torch.Tensor:
@@ -289,37 +325,20 @@ def _reducer(op: str):
     raise ValueError(f"allreduce op must be one of ['max', 'min', 'sum'], got {op!r}")
 
 
-# ---------------------------------------------------------------------------
-# blocking collectives
-# ---------------------------------------------------------------------------
+def _plan_for(ctx: IContext, coll: str, statics: tuple, x,
+              build_plan: Callable[[], Callable]) -> CollPlan:
+    fn = _engine.plan((coll, statics, _aval(x), ctx.key), build_plan)
+    return CollPlan(coll, ctx, fn,
+                    prep=lambda *ops: tuple(ctx.place(o) for o in ops))
 
 
-def allreduce(ctx: IContext, x, op: str = "sum"):
-    """MPI_Allreduce over every rank's rows: (N, …) → (…) replicated."""
+def _allreduce_plan(ctx: IContext, x, op: str) -> CollPlan:
     red = _reducer(op)
-    return _run(ctx, "allreduce", (op,), x, lambda: red)
+    return _plan_for(ctx, "allreduce", (op,), x, lambda: red)
 
 
-def reduce(ctx: IContext, x, op: str = "sum"):
-    """MPI_Reduce (root=driver): same pattern as allreduce on one device."""
-    return allreduce(ctx, x, op)
-
-
-def bcast(ctx: IContext, x):
-    """MPI_Bcast: replicate a driver value across executors."""
-    _engine.stats_bump("coll_calls")
-    return CollHandle("bcast", ctx, ctx.place(x)).wait()
-
-
-def gather(ctx: IContext, x):
-    """MPI_Allgather: rank-sharded (n, …) → replicated (n, …)."""
-    return _run(ctx, "gather", (), x, lambda: lambda v: v.clone())
-
-
-def scatter(ctx: IContext, x):
-    """MPI_Scatter: replicated (n, …) → rank-sharded (n, …)."""
-    _engine.stats_bump("coll_calls")
-    return CollHandle("scatter", ctx, ctx.place(x)).wait()
+def _gather_plan(ctx: IContext, x) -> CollPlan:
+    return _plan_for(ctx, "gather", (), x, lambda: lambda v: v.clone())
 
 
 def _alltoall_check(ctx: IContext, x):
@@ -333,10 +352,10 @@ def _alltoall_check(ctx: IContext, x):
             f"{n / p:g} local rows, which must be a multiple of {p}")
 
 
-def alltoall(ctx: IContext, x):
+def _alltoall_plan(ctx: IContext, x) -> CollPlan:
     """MPI_Alltoall. x: (p·p·k, …); rank i holds, in order, the k rows for
     each peer. Returns the same shape with rows regrouped by source."""
-    _alltoall_check(ctx, x)
+    _alltoall_check(ctx, x)  # before any plan work: an invalid shape never flies
     p = ctx.executors
 
     def build_plan():
@@ -347,19 +366,17 @@ def alltoall(ctx: IContext, x):
 
         return f
 
-    return _run(ctx, "alltoall", (), x, build_plan)
+    return _plan_for(ctx, "alltoall", (), x, build_plan)
 
 
-def ppermute(ctx: IContext, x, shift: int = 1):
-    """MPI_Sendrecv ring: rank i's rows go to rank (i+shift) % p."""
-
+def _ppermute_plan(ctx: IContext, x, shift: int) -> CollPlan:
     def build_plan():
         return lambda v: torch.roll(_ranked(ctx, v), shift, dims=0).reshape(v.shape)
 
-    return _run(ctx, "ppermute", (shift,), x, build_plan)
+    return _plan_for(ctx, "ppermute", (shift,), x, build_plan)
 
 
-def exscan(ctx: IContext, x, op: str = "sum"):
+def _exscan_plan(ctx: IContext, x, op: str) -> CollPlan:
     """MPI_Exscan (exclusive prefix over executor ranks) of per-rank
     scalars. x: (p,), one scalar per executor."""
     if op != "sum":
@@ -372,13 +389,162 @@ def exscan(ctx: IContext, x, op: str = "sum"):
 
         return f
 
-    return _run(ctx, "exscan", (op,), x, build_plan)
+    return _plan_for(ctx, "exscan", (op,), x, build_plan)
+
+
+def _barrier_plan(ctx: IContext) -> CollPlan:
+    z = torch.zeros((ctx.executors,), dtype=torch.int32, device=ctx.device)
+    return CollPlan(
+        "barrier", ctx,
+        lambda: _engine.plan(("barrier", (), _aval(z), ctx.key),
+                             lambda: lambda v: v.sum())(z),
+        transform=lambda _v: None)
+
+
+# ---------------------------------------------------------------------------
+# the persistent API (init once / invoke many)
+# ---------------------------------------------------------------------------
+
+_PLAN_BUILDERS = {
+    "allreduce": lambda ctx, x, op="sum": _allreduce_plan(ctx, x, op),
+    "reduce": lambda ctx, x, op="sum": _allreduce_plan(ctx, x, op),
+    "gather": _gather_plan,
+    "alltoall": _alltoall_plan,
+    "ppermute": lambda ctx, x, shift=1: _ppermute_plan(ctx, x, shift),
+    "exscan": lambda ctx, x, op="sum": _exscan_plan(ctx, x, op),
+}
+
+
+def persistent(ctx: IContext, coll: str, x=None, **statics) -> CollPlan:
+    """Initialise a persistent collective plan for operands shaped like
+    ``x`` (MPI_*_init): ``plan.start(x)`` dispatches an invocation,
+    ``plan(x)`` is the blocking facade. Plans are cheap to re-create — the
+    body lives in the process-wide LRU, so init-once is a cache property,
+    not an object-lifetime obligation."""
+    if coll == "barrier":
+        return _barrier_plan(ctx)
+    if coll in ("bcast", "scatter"):  # placement only: no plan to build
+        return CollPlan(coll, ctx, lambda v: ctx.place(v))
+    builder = _PLAN_BUILDERS.get(coll)
+    if builder is None:
+        raise ValueError(f"unknown collective {coll!r} "
+                         f"(have {sorted(_PLAN_BUILDERS) + ['barrier', 'bcast', 'scatter']})")
+    if x is None:
+        raise ValueError(f"persistent({coll!r}) needs a prototype operand")
+    return builder(ctx, x, **statics)
+
+
+def persistent_program(tag: str, comm, statics: tuple,
+                       build_plan: Callable[[], Callable]) -> Callable:
+    """Build-once/invoke-many plan for a whole SPMD program (a native
+    app's body over every rank): the same LRU and telemetry as the
+    single-collective plans, keyed by ``("spmd", tag, statics, comm)``.
+    ``comm`` is the communicator's identity — ``ctx.key``, or the
+    ``(ranks, axis)`` pair of ``ctx.comm()`` with the operands' device
+    among the statics."""
+    return _engine.plan(("spmd", tag, statics, comm), build_plan)
+
+
+# ---------------------------------------------------------------------------
+# nonblocking collectives (MPI_I* — dispatch now, CollHandle as the future)
+# ---------------------------------------------------------------------------
+
+
+def iallreduce(ctx: IContext, x, op: str = "sum") -> CollHandle:
+    """MPI_Iallreduce over every rank's rows: (N, …) → (…) replicated."""
+    return _allreduce_plan(ctx, x, op).start(x)
+
+
+def ireduce(ctx: IContext, x, op: str = "sum") -> CollHandle:
+    """MPI_Ireduce (root=driver): same pattern as allreduce on one device."""
+    return iallreduce(ctx, x, op)
+
+
+def ibcast(ctx: IContext, x) -> CollHandle:
+    """MPI_Ibcast: replicate a driver value across executors."""
+    _engine.stats_bump("coll_calls")
+    return CollHandle("bcast", ctx, ctx.place(x))
+
+
+def igather(ctx: IContext, x) -> CollHandle:
+    """MPI_Iallgather: rank-sharded (n, …) → replicated (n, …)."""
+    return _gather_plan(ctx, x).start(x)
+
+
+def iscatter(ctx: IContext, x) -> CollHandle:
+    """MPI_Iscatter: replicated (n, …) → rank-sharded (n, …)."""
+    _engine.stats_bump("coll_calls")
+    return CollHandle("scatter", ctx, ctx.place(x))
+
+
+def ialltoall(ctx: IContext, x) -> CollHandle:
+    """MPI_Ialltoall — shape validation is eager (the ValueError fires at
+    dispatch, not at wait: an invalid exchange must never enter flight)."""
+    return _alltoall_plan(ctx, x).start(x)
+
+
+def ippermute(ctx: IContext, x, shift: int = 1) -> CollHandle:
+    """MPI_Isend/Irecv ring: rank i's rows go to rank (i+shift) % p."""
+    return _ppermute_plan(ctx, x, shift).start(x)
+
+
+def iexscan(ctx: IContext, x, op: str = "sum") -> CollHandle:
+    return _exscan_plan(ctx, x, op).start(x)
+
+
+def ibarrier(ctx: IContext) -> CollHandle:
+    """MPI_Ibarrier: a zero-byte allreduce in flight; wait() returns None."""
+    return _barrier_plan(ctx).start()
+
+
+# ---------------------------------------------------------------------------
+# blocking facades (each is literally i*(…).wait())
+# ---------------------------------------------------------------------------
+
+
+def allreduce(ctx: IContext, x, op: str = "sum"):
+    """MPI_Allreduce: blocking facade over ``iallreduce``."""
+    return iallreduce(ctx, x, op).wait()
+
+
+def reduce(ctx: IContext, x, op: str = "sum"):
+    """MPI_Reduce (root=driver): same pattern as allreduce on one device."""
+    return allreduce(ctx, x, op)
+
+
+def bcast(ctx: IContext, x):
+    """MPI_Bcast: replicate a driver value across executors."""
+    return ibcast(ctx, x).wait()
+
+
+def gather(ctx: IContext, x):
+    """MPI_Allgather: rank-sharded (n, …) → replicated (n, …)."""
+    return igather(ctx, x).wait()
+
+
+def scatter(ctx: IContext, x):
+    """MPI_Scatter: replicated (n, …) → rank-sharded (n, …)."""
+    return iscatter(ctx, x).wait()
+
+
+def alltoall(ctx: IContext, x):
+    """MPI_Alltoall (see ``ialltoall`` for the validation contract)."""
+    return ialltoall(ctx, x).wait()
+
+
+def ppermute(ctx: IContext, x, shift: int = 1):
+    """MPI_Sendrecv ring: rank i's rows go to rank (i+shift) % p."""
+    return ippermute(ctx, x, shift).wait()
+
+
+def exscan(ctx: IContext, x, op: str = "sum"):
+    """MPI_Exscan (exclusive prefix over executor ranks) of per-rank scalars."""
+    return iexscan(ctx, x, op).wait()
 
 
 def barrier(ctx: IContext):
     """MPI_Barrier: a zero-byte allreduce, blocked on."""
-    z = torch.zeros((ctx.executors,), dtype=torch.int32, device=ctx.device)
-    _run(ctx, "barrier", (), z, lambda: lambda v: v.sum())
+    ibarrier(ctx).wait()
 
 
 def shard_rows(ctx: IContext, x):

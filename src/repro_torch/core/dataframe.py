@@ -2,7 +2,8 @@
 
 Transformations register TaskNodes (lazy); actions trigger DAG evaluation.
 All wide operators execute as collectives over the worker's ranks ("ignis"
-mode; the reference's "spark" driver-pipe baseline is not ported yet).
+mode) or additionally pay the driver pipe ("spark" mode: every result goes
+device → host → per-element pickle → device, and nothing fuses).
 
 Row functions are torch row functions: Python callables, ``ISource``
 wrappers or text lambdas (paper §4.2) — resolved by ``textlambda.resolve``.
@@ -74,7 +75,8 @@ class IDataFrame:
         The kernel doubles as the node's ``block_fn`` (unfused / repair path)
         and, when ``fusable``, as its ``fuse_fn`` — the planner composes
         consecutive fuse_fns into one stage (DESIGN.md §5). ``key``
-        extends the op name into the plan-cache signature."""
+        extends the op name into the plan-cache signature. In spark mode every
+        op pays the driver pipe, so nothing can fuse across it."""
         def block_fn(ps, _k=kernel):
             return _k(ps[0])
 
@@ -84,6 +86,9 @@ class IDataFrame:
         # same plan-cache entry and the same shuffle capacity-memory slot.
         tkey = tuple(fn_token(k) if callable(k) else k for k in key)
         fuse_key = (op, *tkey) if fuse_fn is not None else None
+        if self.worker.mode == "spark":
+            block_fn = self.worker._pipe_wrap(block_fn)
+            fuse_fn = fuse_key = None
         node = TaskNode(op, [self.node], block_fn=block_fn, narrow=True,
                         fuse_fn=fuse_fn, fuse_key=fuse_key)
         node.sig = ("n", fuse_key if fuse_key is not None else (op, node.id),
@@ -102,6 +107,8 @@ class IDataFrame:
         if needs_sig:
             inner = fn
             fn = lambda prs, _inner=inner, _sig=sig: _inner(prs, _sig)  # noqa: E731
+        if self.worker.mode == "spark":
+            fn = self.worker._pipe_wrap_wide(fn)
         node = TaskNode(op, parents, fn=fn, narrow=False)
         node.sig = sig
         if shuffle:
