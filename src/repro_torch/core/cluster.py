@@ -9,6 +9,11 @@ block between devices, a no-op on the same device).
 The cluster's device comes from ``ignis.device`` (``cuda`` by default). A
 cluster asked for ``cuda`` where no card is visible raises: it never carries
 on quietly on the CPU. Tests pass ``ignis.device=cpu``.
+
+A cluster also has a fixed pool of rank slots (``slots``, by default the
+executor count): the counterpart of the devices a JAX process sees. The
+elastic mesh (``IWorker.grow``/``shrink``) admits ranks from the free slots
+and retires them back into the pool.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from repro_torch.core import faults, tree
 from repro_torch.core.context import IContext
 from repro_torch.core.dag import DagEngine, TaskNode, node_sig
 from repro_torch.core.dataframe import IDataFrame
-from repro_torch.core.metrics import MetricsTree, warn_deprecated
+from repro_torch.core.metrics import Counters, MetricsTree, warn_deprecated
 from repro_torch.core.native import get_app, load_library
 from repro_torch.core.partition import (Block, block_aval, concat_blocks,
                                         from_host, place_block)
@@ -70,9 +75,11 @@ class Ignis:
 
 
 class ICluster:
-    """A group of executor containers: ``p`` virtual ranks on one device."""
+    """A group of executor containers: ``p`` virtual ranks on one device,
+    out of ``slots`` rank slots (default: ``p``) a worker may grow into."""
 
-    def __init__(self, props: Optional[IProperties] = None):
+    def __init__(self, props: Optional[IProperties] = None,
+                 slots: Optional[int] = None):
         self.props = props or IProperties()
         dev = torch.device(self.props.get("ignis.device", "cuda"))
         if dev.type == "cuda":
@@ -84,6 +91,10 @@ class ICluster:
                 dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
         self.executors = max(self.props.get_int("ignis.executor.instances", 1), 1)
+        self.slots = self.executors if slots is None else int(slots)
+        if self.slots < self.executors:
+            raise ValueError(f"ICluster: {self.slots} rank slots cannot hold "
+                             f"{self.executors} executors")
         self.workers: list[IWorker] = []
 
     # paper §4: remote commands to containers — host-side here
@@ -152,6 +163,19 @@ class IWorker:
             ),
         )
         self._libraries: list[str] = []
+        # elastic mesh telemetry: resize events and the incremental-reshard
+        # split — `reshard_moves` (blocks whose ownership changed, moved as
+        # pure data) vs `reshard_unchanged` (cached blocks a resize left in
+        # place) vs `reshard_recomputes` (blocks LOST mid-move — the
+        # elastic.reshard fault site — left to block-wise lineage repair)
+        self.elastic_stats = Counters("elastic", {
+            "grows": 0,
+            "shrinks": 0,
+            "world_size": self._base_context.executors,
+            "reshard_moves": 0,
+            "reshard_unchanged": 0,
+            "reshard_recomputes": 0,
+        })
         # unified introspection tree: every subsystem's counter namespace
         # mounted under one surface (`coll` is process-wide, a thunk)
         self._metrics = MetricsTree(
@@ -159,6 +183,7 @@ class IWorker:
             shuffle=self.shuffle.stats,
             kernels=self.shuffle.kernels.stats,
             coll=comm_mod.comm_stats,
+            elastic=self.elastic_stats,
         )
         # job-scheduler serialisation points (core/job.py): the base lock
         # covers the whole worker; gang-scheduled tasks instead hold one
@@ -168,8 +193,13 @@ class IWorker:
         # id(ctx) → (ctx, lock, pinned); pinned entries (worker.groups()
         # splits) live forever, ad-hoc entries are evicted FIFO beyond the cap
         self._group_locks: "OrderedDict[int, tuple]" = OrderedDict()
-        self._groups: dict[int, list] = {}
+        # n_groups → (base context the split was built from, groups): a
+        # grow/shrink swaps _base_context, so a split of the old world is
+        # rebuilt on next use instead of surviving the resize
+        self._groups: dict[int, tuple] = {}
         self._groups_guard = threading.Lock()
+        # serialises grow/shrink against each other (the drain handles jobs)
+        self._resize_lock = threading.RLock()
         # executors reported lost and the cached nodes whose blocks a lost
         # executor takes with it (WeakSet: dropping every frame releases them)
         self.executor_blacklist: set[int] = set()
@@ -205,11 +235,20 @@ class IWorker:
         every job gang-scheduled at the same width shares one set of group
         communicators and one group lock per slice."""
         with self._groups_guard:
-            gs = self._groups.get(n_groups)
-            if gs is None:
-                gs = self._groups[n_groups] = self._base_context.split(n_groups)
+            entry = self._groups.get(n_groups)
+            # revalidate against the CURRENT world: a resize swaps
+            # _base_context, and a split of the old world would otherwise
+            # keep handing out stale groups
+            if entry is not None and entry[0] is not self._base_context:
+                for g in entry[1]:
+                    self._group_locks.pop(id(g), None)
+                entry = None
+            if entry is None:
+                gs = self._base_context.split(n_groups)
+                entry = self._groups[n_groups] = (self._base_context, gs)
                 for g in gs:
                     self._group_locks[id(g)] = (g, threading.RLock(), True)
+            gs = entry[1]
             lost = sorted({r for g in gs for r in g.group_ranks
                            if r in self.executor_blacklist})
             if lost:
@@ -234,11 +273,113 @@ class IWorker:
             return entry[1]
 
     # ------------------------------------------------------------------
+    # elastic mesh: runtime grow/shrink
+    # ------------------------------------------------------------------
+    def _world_ranks(self) -> list:
+        return list(self._base_context.ranks)
+
+    def grow(self, n: int = 1) -> int:
+        """Admit ``n`` executor ranks at runtime: in-flight tasks drain on
+        the old communicator, the base context rebinds a world extended
+        with ``n`` free rank slots, and cached partitions reshard
+        incrementally. Returns the new world size."""
+        if n < 1:
+            raise ValueError(f"grow() needs n >= 1, got {n}")
+        with self._resize_lock:
+            cur = self._world_ranks()
+            have = set(cur)
+            pool = [r for r in range(self.cluster.slots) if r not in have]
+            if len(pool) < n:
+                raise ValueError(
+                    f"grow({n}): only {len(pool)} free rank slot(s) beyond the "
+                    f"current {len(cur)}-executor world")
+            return self._resize(cur + pool[:n])
+
+    def shrink(self, ranks) -> int:
+        """Retire executor ranks at runtime: ``shrink(2)`` retires the two
+        highest ranks, ``shrink([1, 3])`` retires exactly those ranks. At
+        least one rank must survive. Cached blocks owned by retired ranks
+        move onto the survivors (incremental reshard — pure data movement,
+        no lineage recompute). Returns the new world size."""
+        with self._resize_lock:
+            cur = self._world_ranks()
+            if isinstance(ranks, int):
+                if ranks < 1:
+                    raise ValueError(f"shrink() needs >= 1 rank, got {ranks}")
+                ranks = range(len(cur) - ranks, len(cur))
+            retire = sorted({int(r) for r in ranks})
+            if not retire:
+                raise ValueError("shrink() needs at least one rank")
+            bad = [r for r in retire if not 0 <= r < len(cur)]
+            if bad:
+                raise ValueError(
+                    f"shrink() ranks {bad} out of range for {len(cur)} executors")
+            if len(retire) >= len(cur):
+                raise ValueError(
+                    f"shrink({retire}) would retire the whole {len(cur)}-rank "
+                    f"world; at least one executor must survive")
+            gone = set(retire)
+            return self._resize([r for i, r in enumerate(cur) if i not in gone])
+
+    def _resize(self, new_ranks: list) -> int:
+        """Swap the base communicator onto ``new_ranks`` under a full drain:
+        the worker job lock plus every pinned group lock (the ``groups()``
+        splits gang tasks serialise on) are held, so in-flight tasks finish
+        on the OLD communicator and later submissions bind the resized
+        world via ``worker.context``. Ad-hoc caller-built groups are not
+        drained; their tasks keep computing on their own (stale but intact)
+        ranks. Call from a driver thread that holds no job locks."""
+        old = self._base_context
+        with self._groups_guard:
+            drain = [lock for (_c, lock, pinned) in self._group_locks.values()
+                     if pinned]
+        held = []
+        self._job_lock.acquire()
+        held.append(self._job_lock)
+        for lk in drain:
+            lk.acquire()
+            held.append(lk)
+        try:
+            old_ranks = self._world_ranks()
+            old_world = frozenset(old_ranks)
+            new_ctx = IContext(tuple(new_ranks), old.device, old.axis,
+                               self.cluster.props, self)
+            new_ctx._vars = dict(old._vars)
+            self._base_context = new_ctx
+            # the blacklist is position-indexed: re-key it by rank identity
+            # (a blacklisted position whose rank was retired is simply gone)
+            pos = {r: i for i, r in enumerate(new_ranks)}
+            self.executor_blacklist = {
+                pos[old_ranks[i]] for i in self.executor_blacklist
+                if i < len(old_ranks) and old_ranks[i] in pos}
+            # cached splits of the old world are stale; groups() also
+            # revalidates by base identity, this just frees the locks now
+            with self._groups_guard:
+                for _base, gs in self._groups.values():
+                    for g in gs:
+                        self._group_locks.pop(id(g), None)
+                self._groups.clear()
+            from repro_torch.distributed.elastic import reshard_cached
+
+            moves, kept, recomputes = reshard_cached(self, old_world, new_ctx)
+            st = self.elastic_stats
+            st["grows" if len(new_ranks) > len(old_ranks) else "shrinks"] += 1
+            st["world_size"] = len(new_ranks)
+            st["reshard_moves"] += moves
+            st["reshard_unchanged"] += kept
+            st["reshard_recomputes"] += recomputes
+            return len(new_ranks)
+        finally:
+            for lk in reversed(held):
+                lk.release()
+
+    # ------------------------------------------------------------------
     # executor failure (paper §3.5: container loss + blacklist)
     # ------------------------------------------------------------------
     def _register_cached(self, node: TaskNode):
-        """Track a node holding materialised blocks (persist / parallelize)
-        so a simulated executor loss can take its block."""
+        """Track a node holding materialised blocks (persist / parallelize /
+        checkpoint) so a simulated executor loss can take its block, and a
+        resize can reshard it."""
         self._cached_nodes.add(node)
 
     def kill_executor(self, rank: int, blacklist: bool = True) -> int:
@@ -271,7 +412,8 @@ class IWorker:
     def metrics(self, path: str | None = None) -> dict:
         """The worker's namespaced metrics tree: ``stages/`` (DagEngine),
         ``shuffle/`` (ShuffleManager), ``kernels/`` (kernel tier), ``coll/``
-        (process-wide collective engine). ``path`` selects one subtree."""
+        (process-wide collective engine), ``elastic/`` (resizes). ``path``
+        selects one subtree."""
         return self._metrics.snapshot(path)
 
     def mount_metrics(self, name: str, source) -> None:
@@ -303,12 +445,13 @@ class IWorker:
 
     def parallelize(self, rows, blocks: int = 1) -> IDataFrame:
         p = self.executors
+        ranks = self.context.ranks
         if blocks <= 1:
-            blk = [from_host(rows, p, self.device)]
+            blk = [from_host(rows, p, self.device, ranks)]
         else:
             per = (len(rows) + blocks - 1) // blocks
             blk = [
-                from_host(rows[i * per: (i + 1) * per], p, self.device)
+                from_host(rows[i * per: (i + 1) * per], p, self.device, ranks)
                 for i in range(blocks)
                 if len(rows[i * per: (i + 1) * per])
             ]
@@ -365,7 +508,7 @@ class IWorker:
                     pickle.loads(pickle.dumps(tree.map(_host, b.data))), _host(b.valid))
                     for b in parent_results[0]]
             # on-device reshard: the inter-worker communicator
-            return [place_block(b, self.device) for b in parent_results[0]]
+            return [place_block(b, self.context) for b in parent_results[0]]
 
         node = TaskNode("importData", [df.node], fn=fn, narrow=False)
         return IDataFrame(self, node)
@@ -401,7 +544,7 @@ class IWorker:
         if not parent_results:
             return ()
         faults.check("reshard", kind="native")
-        b = place_block(concat_blocks(parent_results[0]), ctx.device)
+        b = place_block(concat_blocks(parent_results[0]), ctx)
         return (b.data, b.valid)
 
     def void_call_async(self, fn_name, df: IDataFrame | None = None, job=None,

@@ -88,6 +88,29 @@ def node_sig(node: "TaskNode") -> tuple:
     return node.sig if node.sig is not None else ("id", node.id)
 
 
+def _follow(block, parents):
+    """A narrow stage's block stays committed where its input was (the
+    reference's block functions keep their inputs' placement): a fresh
+    output block takes the first committed parent block's ranks."""
+    if block is not None and block.ranks is None:
+        for pb in parents:
+            if pb is not None and pb.ranks is not None:
+                block.ranks = pb.ranks
+                break
+    return block
+
+
+def _commit(node, blocks):
+    """A wide or native stage's blocks are committed to the communicator it
+    ran under: the owning worker's active context on this thread."""
+    ctx = getattr(node.owner, "context", None)
+    if ctx is not None:
+        for b in blocks:
+            if b is not None and b.ranks is None:
+                b.ranks = tuple(ctx.ranks)
+    return blocks
+
+
 class FusedStage:
     """A maximal chain of fusable narrow nodes, head → tail.
 
@@ -365,7 +388,7 @@ class DagEngine:
                 faults.check("dag.block", op=stage.tail.op, block=len(out), fused=True)
                 self.stats["iter_block_computes"] += 1
                 data, valid = self._compiled(stage, pb)(pb.data, pb.valid)
-                b = Block(data, valid)
+                b = Block(data, valid, pb.ranks)
                 out.append(b)
                 yield b
             for n in stage.nodes:  # telemetry parity with _compute_stage
@@ -385,7 +408,7 @@ class DagEngine:
             for parents_i in zip(*iters):
                 faults.check("dag.block", op=node.op, block=len(out), fused=False)
                 self.stats["iter_block_computes"] += 1
-                b = node.block_fn(list(parents_i))
+                b = _follow(node.block_fn(list(parents_i)), parents_i)
                 out.append(b)
                 yield b
             # fully consumed ⇒ the node is materialised: record it in the
@@ -424,7 +447,8 @@ class DagEngine:
             out = []
             for i in range(nblocks):
                 faults.check("dag.block", op=node.op, block=i, fused=False)
-                out.append(node.block_fn([pr[i] for pr in parent_results]))
+                parents_i = [pr[i] for pr in parent_results]
+                out.append(_follow(node.block_fn(parents_i), parents_i))
             return out
         faults.check("dag.node", op=node.op)
         self.stats["wide_computes"] += 1
@@ -442,7 +466,7 @@ class DagEngine:
             # any node failure and retries through the scheduler
             out = out.wait()
             self.stats["handle_awaits"] += 1
-        return out
+        return _commit(node, out)
 
     def _compute_stage(self, stage: FusedStage, memo: dict, plans: dict):
         """Run a fused stage: one compiled kernel per block, head's parent to
@@ -457,7 +481,7 @@ class DagEngine:
             faults.check("dag.block", op=stage.tail.op, block=i, fused=True)
             fn = self._compiled(stage, b)
             data, valid = fn(b.data, b.valid)
-            out.append(Block(data, valid))
+            out.append(Block(data, valid, b.ranks))
         if hook is not None:
             hook(f"stage:{stage.tail.op}", "engine", t0, time.perf_counter(),
                  ops=len(stage.nodes), blocks=len(out),
@@ -499,7 +523,7 @@ class DagEngine:
             if b is None:
                 faults.check("dag.repair", op=node.op, block=i)
                 parents_i = [self._parent_block(p, i, memo, plans) for p in node.parents]
-                blocks[i] = node.block_fn(parents_i)
+                blocks[i] = _follow(node.block_fn(parents_i), parents_i)
                 self.stats["block_recomputes"] += 1
         node.result = blocks
         return blocks
@@ -514,9 +538,8 @@ class DagEngine:
                 parent.result[i] = blk
             return blk
         if parent.narrow and parent.block_fn is not None and parent.parents:
-            blk = parent.block_fn(
-                [self._parent_block(gp, i, memo, plans) for gp in parent.parents]
-            )
+            gps = [self._parent_block(gp, i, memo, plans) for gp in parent.parents]
+            blk = _follow(parent.block_fn(gps), gps)
             self.stats["block_recomputes"] += 1
             if parent.cached and parent.result is not None:
                 parent.result[i] = blk

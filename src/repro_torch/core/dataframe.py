@@ -387,11 +387,49 @@ class IDataFrame:
     uncache = unpersist
 
     def checkpoint(self, ckpt_dir: str) -> "IDataFrame":
-        """Materialise, persist and truncate the lineage here (Spark's
-        ``checkpoint()``). Needs the checkpoint subsystem, which the port
-        does not carry yet."""
-        raise NotImplementedError(
-            "IDataFrame.checkpoint needs the recovery tier, not yet ported")
+        """Materialise this frame, persist its blocks through the checkpoint
+        subsystem (``repro_torch.checkpoint``: manifest + content hashes),
+        and TRUNCATE the lineage here: the node's parents are unlinked and
+        its repair path restores lost blocks from the checkpoint —
+        block-wise, integrity-verified — instead of recomputing ancestors
+        (docs/fault_tolerance.md). Spark's ``checkpoint()`` semantic with
+        per-block restore granularity; the step is keyed by the node id and
+        kept forever (``keep=0``), so give each frame its own directory.
+        Restored blocks land on the worker's device, committed to its
+        active communicator."""
+        from repro_torch import checkpoint as ck
+
+        node = self.node
+        worker = self.worker
+        blocks = self._blocks()
+        step = node.id
+        ck.save(ckpt_dir, step,
+                {f"b{i:05d}": {"data": b.data, "valid": b.valid}
+                 for i, b in enumerate(blocks)},
+                keep=0)
+        metas = [
+            tree.map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
+                     {"data": b.data, "valid": b.valid})
+            for b in blocks
+        ]
+
+        def _load(i: int) -> Block:
+            key = f"b{i:05d}"
+            t = ck.restore(ckpt_dir, step, {key: metas[i]}, worker.device)[key]
+            return Block(t["data"], t["valid"], tuple(worker.context.ranks))
+
+        node.op = f"checkpoint({node.op})"
+        node.parents = []
+        node.narrow = False
+        node.fn = lambda _parents, _n=len(blocks): [_load(i) for i in range(_n)]
+        node.block_fn = node.fuse_fn = node.fuse_key = None
+        node.restore_fn = _load
+        node.cached = True
+        node.result = blocks
+        node.sig = ("ckpt", ckpt_dir, step)
+        node.shuffle_sig = None
+        worker._register_cached(node)
+        return self
 
     def explain(self) -> str:
         """Physical plan for this frame's lineage: which narrow ops the

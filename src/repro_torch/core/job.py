@@ -730,7 +730,7 @@ class IJob:
             if not blocks:
                 continue
             faults.check("reshard", kind="group", op=d.node.op)
-            overlay[d.node] = [place_block(b, tgt.device) for b in blocks]
+            overlay[d.node] = [place_block(b, tgt) for b in blocks]
             moved += len(blocks)
         if not overlay:
             return self.memo

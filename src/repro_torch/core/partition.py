@@ -11,13 +11,18 @@ flat ``(N, …)`` tensors read rank-major: rank ``r`` holds rows
 devices keeps on device ``r``, in the same order. Wide stages view them as
 ``(p, N/p, …)``.
 
+A block also records the world ranks it is committed to (``ranks``): the
+counterpart of the device set a JAX block's sharding spans. Blocks built
+under a communicator carry its ranks; ``None`` marks a host or uncommitted
+block. Wide stages and the elastic mesh's move/keep rule key on it.
+
 Row trees: scalars, tuples, dicts (``core/tree.py``). KV rows are
 ``{"key": k, "value": v}``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -33,6 +38,9 @@ _CANON = {np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.uint32,
 class Block:
     data: Any  # row tree of tensors, leading dim N (equal across leaves)
     valid: torch.Tensor  # bool[N]
+    # world ranks the block is committed to, in the communicator's order
+    # (None: host or uncommitted)
+    ranks: Optional[tuple] = None
 
     @property
     def capacity(self) -> int:
@@ -71,9 +79,10 @@ def canonical(x) -> np.ndarray:
     return a.astype(t) if t is not None else a
 
 
-def from_host(rows, p: int, device="cpu") -> Block:
+def from_host(rows, p: int, device="cpu", ranks: Optional[tuple] = None) -> Block:
     """Build a Block on ``device`` from host data (list of row trees or a
-    tree of stacked arrays). Pads rows to a multiple of p."""
+    tree of stacked arrays). Pads rows to a multiple of p. ``ranks``: the
+    communicator's ranks the block is committed to."""
     if isinstance(rows, list):
         data = tree.map(lambda *xs: np.stack([np.asarray(x) for x in xs]), *rows)
     else:
@@ -92,7 +101,7 @@ def from_host(rows, p: int, device="cpu") -> Block:
 
     data = tree.map(put, data)
     valid = torch.arange(cap, device=device) < n
-    return Block(data, valid)
+    return Block(data, valid, None if ranks is None else tuple(ranks))
 
 
 def to_host(block: Block):
@@ -105,12 +114,21 @@ def to_host(block: Block):
             for j in range(len(idx))]
 
 
-def place_block(block: Block, device) -> Block:
-    """Move a Block onto ``device`` — the inter-worker / inter-group edge.
-    Virtual ranks share one device, so this is a no-op on the same device."""
-    if block.device == torch.device(device):
+def block_ranks(block: Block) -> Optional[frozenset]:
+    """The rank set a Block is committed to (None for host/uncommitted)."""
+    return None if block.ranks is None else frozenset(block.ranks)
+
+
+def place_block(block: Block, ctx) -> Block:
+    """Commit a Block to communicator ``ctx`` — the inter-worker /
+    inter-group reshard edge: its tensors move to ``ctx.device`` (virtual
+    ranks share one device, so on the same device nothing is copied) and
+    the block records ``ctx.ranks``."""
+    ranks = tuple(ctx.ranks)
+    if block.device == ctx.device and block.ranks == ranks:
         return block
-    return Block(tree.map(lambda x: x.to(device), block.data), block.valid.to(device))
+    dev = ctx.device
+    return Block(tree.map(lambda x: x.to(dev), block.data), block.valid.to(dev), ranks)
 
 
 def concat_blocks(blocks: list[Block]) -> Block:
@@ -122,7 +140,8 @@ def concat_blocks(blocks: list[Block]) -> Block:
                          f"{sorted({str(b.device) for b in blocks})}")
     data = tree.map(lambda *xs: torch.cat(xs, dim=0), *[b.data for b in blocks])
     valid = torch.cat([b.valid for b in blocks], dim=0)
-    return Block(data, valid)
+    ranks = next((b.ranks for b in blocks if b.ranks is not None), None)
+    return Block(data, valid, ranks)
 
 
 def split_block(block: Block, k: int, p: int) -> list[Block]:
@@ -134,9 +153,9 @@ def split_block(block: Block, k: int, p: int) -> list[Block]:
         lo = i * per
         if lo >= n:
             data = tree.map(lambda x: x.new_zeros((p, *x.shape[1:])), block.data)
-            out.append(Block(data, block.valid.new_zeros((p,))))
+            out.append(Block(data, block.valid.new_zeros((p,)), block.ranks))
             continue
         hi = min(lo + per, n)
         data = tree.map(lambda x: x[lo:hi], block.data)
-        out.append(Block(data, block.valid[lo:hi]))
+        out.append(Block(data, block.valid[lo:hi], block.ranks))
     return out

@@ -172,7 +172,37 @@ register("ignis.kernels.blocks", "str", "128,256,512",
 register("ignis.kernels.tune.cache.size", "int", "512",
          "Autotune memo LRU entries.")
 
-# -- serving (docs/streaming.md) ----------------------------------------------
+# -- elastic mesh (docs/elasticity.md) --------------------------------------
+register("ignis.elastic.enabled", "bool", "false",
+         "Let ElasticPolicy.poll()/on_admit() resize the worker mesh; off, "
+         "the policy only reports what it WOULD do.")
+register("ignis.elastic.min.executors", "int", "1",
+         "Autoscaling floor: the policy never shrinks the world below this.")
+register("ignis.elastic.max.executors", "int", "0",
+         "Autoscaling ceiling (0 = every visible device).")
+register("ignis.elastic.step", "int", "1",
+         "Maximum ranks added/retired per policy decision.")
+register("ignis.elastic.queue.per.executor", "int", "4",
+         "Target scheduler queue depth per executor: desired world = "
+         "ceil(queue / this), clamped to [min, max].")
+register("ignis.elastic.cooldown.polls", "int", "1",
+         "Consecutive same-direction polls required before the policy acts "
+         "(deterministic hysteresis — no wall-clock cooldowns).")
+
+# -- streaming / serving (docs/streaming.md) --------------------------------
+register("ignis.stream.batch.rows", "int", "256",
+         "Micro-batch size in rows.")
+register("ignis.stream.max.inflight", "int", "8",
+         "Global in-flight micro-batch cap.")
+register("ignis.stream.tenant.quota", "int", "4",
+         "Per-tenant in-flight micro-batch quota.")
+register("ignis.stream.queue.depth", "int", "16",
+         "Admission waiter queue depth.")
+register("ignis.stream.shed.policy", "str", "block",
+         "Overload policy: block applies backpressure (the only "
+         "exactly-once-deterministic choice); shed drops and counts.")
+register("ignis.stream.checkpoint.interval", "int", "0",
+         "Micro-batches between offset/state checkpoints (0 = off).")
 register("ignis.serve.queue.depth", "int", "64",
          "Serve front-door request queue bound.")
 

@@ -43,7 +43,8 @@ from repro_torch.core import comm, faults, tree
 from repro_torch.core import shuffle as sh
 from repro_torch.core.executor import _vmapped
 from repro_torch.core.metrics import Counters
-from repro_torch.core.partition import Block, block_aval as _block_aval, place_block
+from repro_torch.core.partition import (Block, block_aval as _block_aval, block_ranks,
+                                        place_block)
 from repro_torch.kernels.registry import KernelRegistry, builtin_reduce_op
 
 
@@ -207,13 +208,18 @@ class ShuffleManager:
             self.stats[key] += n
 
     def _placed(self, b: Block) -> Block:
-        """Commit a block to the active communicator's device before a wide
-        stage. Virtual ranks share one device, so only a block produced on
-        another device moves; resident blocks pass through."""
+        """Commit a block to the active communicator before a wide stage —
+        the ingress half of the inter-group reshard edge. A block committed
+        to the world's ranks (or another group's) is placed onto this
+        communicator and counted; resident blocks pass through. An
+        uncommitted block on another device only moves."""
         ctx = self.ctx
-        if b.device != ctx.device:
+        ranks = block_ranks(b)
+        if ranks is not None and ranks != frozenset(ctx.ranks):
             self._bump("group_reshards")
-            return place_block(b, ctx.device)
+            return place_block(b, ctx)
+        if b.device != ctx.device:
+            return place_block(b, ctx)
         return b
 
     # ------------------------------------------------------------------

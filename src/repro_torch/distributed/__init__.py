@@ -1,0 +1,11 @@
+"""Distributed runtime pieces of the port: the elastic mesh (runtime
+grow/shrink of executor ranks and its autoscaling policy). The sharding
+rules, gradient compression and the pipeline schedule of the JAX package's
+``distributed/`` are not ported yet (ROADMAP A.2.5)."""
+from repro_torch.distributed.elastic import (  # noqa: F401
+    ElasticPolicy,
+    plan_reshard,
+    repad_block,
+    reshard_cached,
+    restore_elastic,
+)

@@ -352,10 +352,15 @@ def test_repro_torch_imports_without_jax_or_repro():
 
 
 def test_properties_of_unported_subsystems_warn_as_unknown():
+    """Every subsystem with properties is ported now: the port registers
+    each of the reference's keys, and a key neither package knows warns as
+    unknown."""
+    from repro.core import properties as jprops
     from repro_torch.core import properties as tprops
 
-    key = "ignis.elastic.enabled"  # the elastic mesh is not ported yet
-    assert key not in tprops.REGISTRY
+    assert set(jprops.REGISTRY) <= set(tprops.REGISTRY)
+    key = "ignis.elastic.unknown"
+    assert key not in tprops.REGISTRY and key not in jprops.REGISTRY
     tprops._warned_keys.discard(key)
     with pytest.warns(UserWarning, match="unknown property"):
         props = tcore.IProperties({key: "true"})

@@ -131,12 +131,6 @@ def test_cuda_device_without_a_card_raises():
         tcore.ICluster(tcore.IProperties())
 
 
-def test_checkpoint_waits_for_the_recovery_tier(ops):
-    w = tcore.IWorker(tcore.ICluster(tcore.IProperties(CPU)), "python")
-    with pytest.raises(NotImplementedError):
-        w.parallelize(cases.VALS).checkpoint("/nonexistent")
-
-
 @pytest.mark.parametrize("mode", MODES)
 def test_gang_scheduled_job_on_rank_groups(mode, ops):
     """IJob(gang=2) deals submissions onto the two halves of the 8 ranks;
