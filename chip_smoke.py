@@ -2,12 +2,13 @@
 """Smoke run of the torch port (``src/repro_torch``) on one NVIDIA card.
 
 Drives the port's main paths through the entry points a user calls — the
-paper's hybrid wordcount on ``p = 8`` virtual executor ranks, the paper's
-evaluation apps in ignis and spark mode, the recovery tier (checkpoints,
-chaos, the elastic mesh, streaming ingestion), then three model families
-served through ``ServeFrontDoor`` (Qwen3-14B, Mamba2-780M, Mixtral-8x7B) — holds
-every hand-written kernel against its plain torch version at the shapes
-those paths gave it, and reports. Run from the
+paper's hybrid wordcount on ``p = 8`` virtual executor ranks (and the
+profile package on its frames), the paper's evaluation apps in ignis and
+spark mode, the recovery tier (checkpoints, chaos, the elastic mesh,
+streaming ingestion), then seven models of three families served through
+``ServeFrontDoor`` (Qwen3-14B, Mamba2-780M, Mixtral-8x7B, OLMo-1B, Yi-9B,
+Gemma3-4B, Phi-3.5-MoE) — holds every hand-written kernel against its plain
+torch version at the shapes those paths gave it, and reports. Run from the
 repository root:
 
     PYTHONPATH=src python3 chip_smoke.py          # N = 2^26 words, p = 8
@@ -66,7 +67,22 @@ non-zero):
              its memset per call) beside its bound and, where one exists,
              the library call; the prefix scan also from the tail through
              its wrapper and at op sum beside ``torch.cumsum``, the bucket
-             router also by its wrapper's host µs per call;
+             router also by its wrapper's host µs per call. Between the
+             correctness checks and the kernel rows, on the same frames,
+             the profile phase (``profile_phase``): ``calibrate(n=8192,
+             repeats=5)`` against the card's f32 and HBM peaks (over 105 %
+             fails), the port's fused-stage build time beside
+             ``compile_s_per_op``, a third warm run with a ``JobTracer`` on
+             the job and the worker (frames bit for bit with the untraced
+             run, a valid Chrome trace in ``build/profile/``, one task span
+             per finished task, the ``profile/`` metrics mounted, the cost
+             history grown by exactly the finished tasks, the hybrid
+             kernels launched as untraced), the identity replay against
+             the measured makespan (reported beside the reference bench's
+             0.75 target), ``lanes=1`` no shorter and two simulations
+             identical, and ``price_fn`` of the narrow stage and of the
+             calibration matmul (exactly 2n^3 FLOP) against their device
+             times, with the scale ``fit()`` sets;
 4. apps    — after the hybrid phase's memory is released, the paper's
              evaluation apps (``repro_torch.apps``) on ``p = 8`` ranks, each
              at full size in ignis mode (``APPS``), cold then warm: TeraSort
@@ -121,13 +137,21 @@ non-zero):
              and the hybrid kernels' launches (each launched);
 6. qwen,   — after the previous phase's memory is released, each model
    mamba,    (random bf16 weights from a seeded generator) serves 8 requests
-   mixtral   of 512–2048 prompt tokens x 32 new tokens on 4 slots of a
+   mixtral,  of 512–2048 prompt tokens x 32 new tokens on 4 slots of a
+   olmo, yi,
+   gemma,
+   phi
              4096-position slab, each decode tick an IJob task of kind
              ``serve``: Qwen3-14B (every prefill through the flash kernel),
              Mamba2-780M (every prefill's mixers through the SSD scan;
              decode is the O(1) recurrence) and Mixtral-8x7B at 24 of its 32
              layers (flash with its 4096 window; every prefill's and decode
-             step's FFNs through the router). Checks: every ticket resolves
+             step's FFNs through the router); then OLMo-1B and Yi-9B (every
+             prefill through flash), Gemma3-4B (its uneven local/global
+             windows keep the plain attention: no flash launch, checked)
+             and Phi-3.5-MoE at 24 of its 32 layers (``PHI_LAYERS``; flash
+             and the router with 16 experts, top-2), each timed by its own
+             log line. Checks: every ticket resolves
              with 32 tokens, each kernel's launches equal layers x prefills
              (the router: layers x (prefills + decode steps)), every flash
              launch on the wgmma route (``PATH_VARIANT``),
@@ -318,7 +342,9 @@ def instrument():
     registry.sweeping = timed_sweeping
 
 
-def run_job(frames, label):
+def run_job(frames, label, tracer=None):
+    """Collect the hybrid frames in one IJob (traced by ``tracer`` if given);
+    returns (results, job wall seconds, the job)."""
     import torch
 
     from repro_torch.core import IJob
@@ -327,6 +353,8 @@ def run_job(frames, label):
     torch.cuda.reset_peak_memory_stats()
     TO_HOST.take(), SWEEPS.take()
     job = IJob(label)
+    if tracer is not None:
+        tracer.attach(job)
     t0 = time.perf_counter()
     futs = {
         "counts.collect": counts.collect_async(job=job),
@@ -344,7 +372,7 @@ def run_job(frames, label):
     log(f"main[{label}]: to_host {th[0]} calls cover {th[1]:.1f} ms of the job "
         f"wall ({th[2]:.1f} ms summed over threads); sweeps {sw[0]} cover "
         f"{sw[1]:.1f} ms ({sw[2]:.1f} ms summed)")
-    return out
+    return out, wall, job
 
 
 def kv_arrays(rows):
@@ -410,7 +438,8 @@ def main_path(args):
         K.reset_launches()
         SEG_CALLS.update(path=0, sweep=0)
         ROUTE_CALLS.update(path=0, sweep=0)
-        results.append(run_job(frames, f"auto run {run}"))
+        out, wall, _job = run_job(frames, f"auto run {run}")
+        results.append(out)
         fns = K.launch_counters()
         launches.append({k: (fns[k].launches, fns[k].tune_launches,
                              sorted(fns[k].geometries)) for k in HYBRID_KERNELS})
@@ -441,7 +470,7 @@ def main_path(args):
     log(f"main: shuffle {w.metrics('shuffle')}")
     log(f"main: kernels {w.metrics('kernels')}")
 
-    off = run_job(hybrid(worker("off"), words, marks, dim_keys, dim_vals), "off")
+    off = run_job(hybrid(worker("off"), words, marks, dim_keys, dim_vals), "off")[0]
 
     # correctness: each frame against its numpy oracle (rows sorted by key),
     # and the kernel runs against off row for row in the order they came back
@@ -466,7 +495,174 @@ def main_path(args):
     log("main: counts == np.bincount, native == np.bincount, maxes == numpy "
         "oracle, kernel runs == off (bit for bit, row for row in collected "
         "order), join rows == distinct words: OK")
+    t0 = time.perf_counter()
+    profile_phase(w, frames, rows["auto 2"], launches[1], wall)
+    log(f"profile: phase took {time.perf_counter() - t0:.1f} s")
     return launches[0]
+
+
+# ---------------------------------------------------------------------------
+# the profile package on the hybrid path's frames
+# ---------------------------------------------------------------------------
+
+#: the calibration probes' size: an (n, n) f32 matmul (2n^3 FLOP, some 22 ms
+#: on the card) and copy-scale (2 x 256 MiB)
+PROFILE_N = 8192
+#: the reference bench's target for the identity replay (benchmarks/
+#: bench_cost_model.py: predicted makespan within 25 % of the measured)
+REPLAY_TARGET = 0.75
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi gave nothing"
+
+
+def profile_phase(w, frames, warm_rows, warm_launches, warm_wall):
+    """The profile package on the card, on the hybrid path's frames before
+    their memory is released: ``calibrate`` (rates against the card's
+    published f32 and HBM peaks; none may read over 105 %); the port's
+    fused-stage build time beside ``DeviceParams.compile_s_per_op``; a third
+    warm run of the hybrid job with a ``JobTracer`` on the job and the
+    worker (frames bit for bit with the untraced warm run, a valid Chrome
+    trace saved under ``build/`` with one task span per finished task, the
+    summary mounted as ``profile/``, the cost history grown by exactly the
+    finished tasks, the hybrid kernels launched as in the untraced run);
+    the captured trace replayed (identity against the measured makespan,
+    ``lanes=1`` no shorter, two simulations identical); and ``price_fn`` of
+    the hybrid's narrow stage on its real blocks and of the calibration
+    matmul (exactly 2n^3 FLOP) against their device times."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.core.dag import DagEngine, FusedStage
+    from repro_torch.profile import (CostModel, DeviceParams, Hypothesis, JobTracer,
+                                     calibrate, capture, simulate, validate)
+
+    gpu = card()
+    t0 = time.perf_counter()
+    params = calibrate(n=PROFILE_N, repeats=5)
+    shares = {"flops": params.flops_per_s / F32_FLOP_PER_S,
+              "hbm": params.hbm_bytes_per_s / HBM_BYTES_PER_S}
+    log(f"profile: calibrate(n={PROFILE_N}, repeats=5) in {time.perf_counter() - t0:.2f} s "
+        f"on {gpu}: flops_per_s {params.flops_per_s:.6e} ({shares['flops']:.4f} of the "
+        f"f32 non-tensor peak {F32_FLOP_PER_S:.3e}), hbm_bytes_per_s "
+        f"{params.hbm_bytes_per_s:.6e} ({shares['hbm']:.4f} of {HBM_BYTES_PER_S:.3e}), "
+        f"dispatch_s {params.dispatch_s:.6e}")
+    for k, share in shares.items():
+        check(share <= 1.05, f"profile: calibrated {k} rate reads {share:.3f} of the card's peak")
+
+    # the hybrid's narrow stage (counts' map over the source blocks), built
+    # as a fused stage on an engine of its own, whose empty plan cache makes
+    # the call a miss: the port's whole stage build
+    map_node = frames[0].node.parents[0]
+    blocks = map_node.parents[0].result
+    stage = FusedStage([map_node])
+    fresh = DagEngine()
+    t0 = time.perf_counter()
+    stage_fn = fresh._compiled(stage, blocks[0])
+    build_s = time.perf_counter() - t0
+    plan = {k: fresh.stats[f"plan_cache_{k}"] for k in ("misses", "hits")}
+    check(plan == {"misses": 1, "hits": 0}, f"profile: the stage build was not one plan-cache "
+          f"miss: {plan}")
+    log(f"profile: fused-stage build ({stage.describe()}, {len(stage.nodes)} op, plan cache "
+        f"{plan}) {build_s:.6e} s per op, beside DeviceParams.compile_s_per_op = "
+        f"{DeviceParams().compile_s_per_op} s (the reference's XLA compile figure, kept so "
+        f"the fusion decisions stay the reference's)")
+
+    # the traced warm run
+    tracer = JobTracer()
+    tracer.attach_worker(w)
+    check(tracer.cost is w.engine.cost_model, "profile: the tracer did not adopt the "
+          "engine's cost model")
+    before = w.engine.cost_model.snapshot()["tasks_observed"]
+    K.reset_launches()
+    SEG_CALLS.update(path=0, sweep=0)
+    ROUTE_CALLS.update(path=0, sweep=0)
+    out, wall, job = run_job(frames, "traced", tracer)
+    fns = K.launch_counters()
+    launches = {k: (fns[k].launches, fns[k].tune_launches, sorted(fns[k].geometries))
+                for k in HYBRID_KERNELS}
+    tracer.detach()
+    check(launches == warm_launches, f"profile: traced launches {launches} differ from the "
+          f"untraced run's {warm_launches}")
+    for key, want in warm_rows.items():
+        got = kv_arrays(out[key]) if isinstance(out[key], list) else out[key]
+        same = (all(np.array_equal(a, b) for a, b in zip(got, want))
+                if isinstance(want, tuple) else got == want)
+        check(same, f"profile: traced {key} differs from the untraced warm run")
+    finished = [t for t in job.tasks if t.t_end]
+    check(finished and all(t.state == "done" for t in finished),
+          f"profile: task states {[t.state for t in job.tasks]}")
+    trace = tracer.to_chrome()
+    problems = validate(trace)
+    check(not problems, f"profile: the Chrome trace is not valid: {problems[:4]}")
+    path = os.path.join(HERE, "build", "profile", "hybrid_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tracer.save(path)
+    with open(path, encoding="utf-8") as f:
+        saved = json.load(f)
+    task_spans = sorted(e["args"]["task"] for e in saved["traceEvents"]
+                        if e.get("ph") == "X" and e.get("cat") == "task"
+                        and e["name"] not in ("compute", "settle"))
+    check(task_spans == sorted(t.name for t in finished),
+          f"profile: saved task spans {task_spans} against finished tasks "
+          f"{sorted(t.name for t in finished)}")
+    summary, mounted = tracer.summary(), w.metrics("profile")
+    check(mounted.keys() == summary.keys() and mounted["tasks"] == len(finished),
+          f"profile: worker.metrics('profile') {mounted} against the summary {summary}")
+    observed = w.engine.cost_model.snapshot()["tasks_observed"] - before
+    check(observed == len(finished), f"profile: the cost history grew by {observed} for "
+          f"{len(finished)} finished tasks")
+    log(f"profile: traced warm run {wall * 1e3:.1f} ms against the untraced warm run "
+        f"{warm_wall * 1e3:.1f} ms; {summary['spans']} spans ({summary['engine_spans']} "
+        f"engine), {summary['tasks']} task spans = {len(finished)} finished tasks, saved to "
+        f"{os.path.relpath(path, HERE)}; compute {summary['compute_ms']:.1f} ms, lock wait "
+        f"{summary['lock_wait_ms']:.1f} ms, settle {summary['settle_ms']:.1f} ms; cost "
+        f"history +{observed}; launches as untraced "
+        f"{ {k: v[0] for k, v in launches.items()} }: OK")
+
+    # replay of the captured job
+    tr = capture(job)
+    ident = simulate(tr)
+    serial = simulate(tr, Hypothesis(lanes=1))
+    ratio = ident.makespan_s / tr.wall_s
+    log(f"profile: replay of {len(tr.tasks)} tasks on {len(tr.lanes())} lanes: identity "
+        f"predicts {ident.makespan_s * 1e3:.3f} ms against {tr.wall_s * 1e3:.3f} ms measured, "
+        f"ratio {ratio:.4f}, accuracy {min(ratio, 1 / ratio):.4f} (the reference bench's "
+        f"target: {REPLAY_TARGET}, reported, not gated); lanes=1 predicts "
+        f"{serial.makespan_s * 1e3:.3f} ms")
+    check(serial.makespan_s >= ident.makespan_s * (1 - 1e-12),
+          "profile: lanes=1 predicts a shorter makespan than the identity")
+    check(simulate(tr) == ident, "profile: two simulations of one trace differ")
+
+    # static pricing against device time, under the calibrated params
+    model = CostModel(params)
+    est = model.price_fn(stage_fn, blocks[0].data, blocks[0].valid, nblocks=len(blocks))
+    pred = model.predict_s(est)
+    dev = device_ms(lambda: [stage_fn(b.data, b.valid) for b in blocks])
+    check(dev is not None, "profile: the profiler saw no device time in the stage")
+    a = torch.ones((PROFILE_N, PROFILE_N), dtype=torch.float32, device="cuda")
+    mm = model.price_fn(torch.mm, a, a)
+    check(mm.flops == 2 * PROFILE_N**3, f"profile: the matmul priced {mm.flops} FLOP, "
+          f"not 2n^3 = {2 * PROFILE_N**3}")
+    mm_dev = device_ms(lambda: torch.mm(a, a), reps=5)
+    check(mm_dev is not None, "profile: the profiler saw no device time in the matmul")
+    mm_pred = model.predict_s(mm)
+    log(f"profile: price_fn of the narrow stage over {len(blocks)} blocks "
+        f"{[tuple(t.shape) for t in blocks[0].data.values()]}: {est.flops:.0f} FLOP, "
+        f"{est.hbm_bytes:.0f} bytes, {est.dispatches:.0f} dispatches; predicted "
+        f"{pred * 1e3:.6f} ms against {dev:.6f} ms device time; the matmul: "
+        f"{mm.flops:.0f} FLOP = 2n^3, predicted {mm_pred * 1e3:.6f} ms against "
+        f"{mm_dev:.6f} ms device time")
+    scale = model.fit([(pred, dev / 1e3)])
+    log(f"profile: fit() on the stage sets scale {scale:.6f}; the matmul's prediction "
+        f"becomes {model.predict_s(mm) * 1e3:.6f} ms")
+    del a
 
 
 # ---------------------------------------------------------------------------
@@ -2191,16 +2387,26 @@ RECORDED_EARLIER_MS = {"flash_attention": 1.6673, "ssd_scan": 1.6210,
 #: Mixtral-8x7B's layers served: all 32 are 46.7e9 parameters, 93.4 GB in
 #: bf16, above the card's 80 GB; 24 are 35.1e9 (65.6 GiB)
 MIXTRAL_LAYERS = 24
+#: Phi-3.5-MoE's layers served: all 32 are 41.9e9 parameters, 83.7 GB in
+#: bf16, which with the 4096-position KV slab do not fit the card's 80 GB;
+#: 24 are 31.5e9 (62.9 GB), the cut Mixtral takes
+PHI_LAYERS = 24
 
 
 def flash_flop(q_shape, k_shape, causal, q_offset):
-    """FLOP of the two products over the live (row, column) pairs."""
+    """FLOP of the two products over the live (row, column) pairs, counted
+    here; the kernel module's pricing helper (``live_pairs``, which
+    ``price_fn`` reads) must give the same."""
+    from repro_torch.kernels.flash_attention.flash_attention import live_pairs
+
     B, H, Sq, hd = q_shape
     Skv = k_shape[2]
     if causal:  # row i sees columns 0 .. i + q_offset (capped at Skv)
         rows = sum(min(i + q_offset + 1, Skv) for i in range(Sq))
     else:
         rows = Sq * Skv
+    priced = live_pairs(Sq, Skv, causal, None, q_offset)
+    check(priced == rows, f"flash: live_pairs gives {priced} pairs, the smoke counts {rows}")
     return 4 * hd * B * H * rows
 
 
@@ -2213,9 +2419,9 @@ FLASH_LONG_LENS = (255, 1819, 2048)
 
 def flash_edge_checks():
     """The flash kernel against its plain version on the card: bf16 and
-    f32, G in {1, 5}, hd in {64, 128, 256}, causal on and off, window in
-    {None, 16}, softcap in {0, 50}, ragged Sq, Skv in ``FLASH_LENS`` (in
-    bf16 also ``FLASH_LONG_LENS``) with q_offset = Skv - Sq where Sq <= Skv
+    f32, G in {1, 4, 5} (4: Mixtral's and Phi-3.5-MoE's GQA), hd in {64,
+    128, 256}, causal on and off, window in {None, 16}, softcap in {0, 50},
+    ragged Sq, Skv in ``FLASH_LENS`` (in bf16 also ``FLASH_LONG_LENS``) with q_offset = Skv - Sq where Sq <= Skv
     (0 otherwise; a window then leaves rows with no live column, which the
     plain version and the kernel define differently, so that pair is not
     run). bf16 is also held in relative L2 (``FLASH_BF16_REL_L2``). No
@@ -2232,7 +2438,7 @@ def flash_edge_checks():
     g = torch.Generator(device="cuda").manual_seed(2)
     n, worst, by_variant = 0, {}, {}
     worst_l2 = {"short": 0.0, "long": 0.0}  # bf16; long: Sq or Skv in FLASH_LONG_LENS
-    for dt, G, hd in itertools.product((torch.bfloat16, torch.float32), (1, 5),
+    for dt, G, hd in itertools.product((torch.bfloat16, torch.float32), (1, 4, 5),
                                        (64, 128, 256)):
         K, B = 2, 2
         atol, rtol = FLASH_TOL[str(dt)]
@@ -2272,7 +2478,7 @@ def flash_edge_checks():
                 worst[str(dt)] = max(worst.get(str(dt), 0.0), max_err(got, ref))
                 n += 1
     torch.cuda.synchronize()
-    log(f"edge: flash_attention — {n} cases (bf16/f32 x G {{1, 5}} x hd {{64, 128, "
+    log(f"edge: flash_attention — {n} cases (bf16/f32 x G {{1, 4, 5}} x hd {{64, 128, "
         f"256}} x causal x window {{None, 16}} x softcap {{0, 50}} x Sq, Skv in "
         f"{FLASH_LENS}, in bf16 also {FLASH_LONG_LENS}): OK; max abs err {worst}; bf16 "
         f"relative L2 at most {worst_l2['short']:.3e} with Sq, Skv in {FLASH_LENS} and "
@@ -2465,11 +2671,17 @@ def ssd_flop_bytes(x_shape, bn_shape, chunk, itemsize):
     """(operations, bytes) of the SSD scan at these shapes: C·Bᵀ over the
     causal pairs of each (batch, chunk, group), the scores times x·Δ over the
     same pairs, C against the carried state and the state update, per head;
-    each input read once and each output written once."""
+    each input read once and each output written once. The kernel module's
+    pricing helper (``work_flops``, which ``price_fn`` reads) must give the
+    same operations."""
+    from repro_torch.kernels.ssd_scan.ssd_scan import work_flops
+
     B, S, H, P = x_shape
     G, N = bn_shape[2], bn_shape[3]
     nc, pairs = S // chunk, chunk * (chunk + 1) // 2
     flop = 2 * B * nc * (G * pairs * N + H * (pairs * P + 2 * chunk * N * P))
+    priced = work_flops(x_shape, bn_shape, chunk)
+    check(priced == flop, f"ssd: work_flops gives {priced}, the smoke counts {flop}")
     nbytes = (2 * B * S * H * P * itemsize + 2 * B * S * G * N * itemsize + B * S * H * 4
               + H * 4 + B * H * P * N * 4)
     return flop, nbytes
@@ -2786,7 +2998,7 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note=""):
     for k, n in want.items():
         check(fns[k].launches == n, f"{label}: {k} launches {fns[k].launches}, expected {n}")
         if k in PATH_VARIANT:
-            check(fns[k].launches_by_variant == {PATH_VARIANT[k]: n},
+            check(fns[k].launches_by_variant == ({PATH_VARIANT[k]: n} if n else {}),
                   f"{label}: {k} launches by route {fns[k].launches_by_variant}, expected "
                   f"all {n} through {PATH_VARIANT[k]}")
     tasks = job.metrics("tasks")
@@ -2934,35 +3146,167 @@ def serve_mamba(args):
                        compare, SSM_F32_REL_L2)
 
 
+def serve_dense(args, name, flash=True):
+    """A dense config at full width, nothing cut: every prefill through the
+    flash kernel, or (``flash=False``: gemma3-4b, whose local and global
+    layers have different windows, so both packages keep the plain
+    attention) through no kernel at all, which the launch check holds at 0;
+    the plain prefill takes the chunked attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(name).with_overrides(attn_impl="flash")
+    chunked = build_model(cfg.with_overrides(attn_impl="chunked"))
+    return serve_phase(args, name, cfg,
+                       lambda prefills, ticks: {
+                           "flash_attention": cfg.num_layers * prefills if flash else 0},
+                       lambda bundle, params, tok: (bundle.prefill(params, tokens=tok)[0],
+                                                    chunked.prefill(params, tokens=tok)[0]),
+                       SERVE_REL_L2, note="" if flash else " (plain attention: uneven windows)")
+
+
 def serve_mixtral(args):
     """Mixtral-8x7B at full width, ``MIXTRAL_LAYERS`` of its 32 layers:
     every prefill through the flash kernel with its 4096 window, every
     prefill and decode step's FFNs through the router kernel; the plain
     prefill takes the router's plain version."""
+    return serve_moe(args, "mixtral", "mixtral-8x7b", MIXTRAL_LAYERS,
+                     "the weights of all 32 are 93.4 GB in bf16, above the card's 80 GB")
+
+
+def serve_phi(args):
+    """Phi-3.5-MoE (16 experts, top-2) at full width, ``PHI_LAYERS`` of its
+    32 layers: every prefill through the flash kernel (no window), every
+    prefill and decode step's FFNs through the router kernel."""
+    return serve_moe(args, "phi", "phi3.5-moe-42b-a6.6b", PHI_LAYERS,
+                     "the weights of all 32 are 83.7 GB in bf16, which with the KV slab "
+                     "do not fit the card's 80 GB")
+
+
+def f32_attention(q, k, v, **kw):
+    """``attention_ref`` on f32 copies of q, k, v, rounded once to q's
+    dtype: the plain attention with P kept in f32."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    return attention_ref(q.float(), k.float(), v.float(), **kw).to(q.dtype)
+
+
+def serve_moe(args, label, name, layers, why):
+    """An MoE config at full width and ``layers`` of its layers (``why``
+    says why the cut): flash in every prefill (with the config's window),
+    the router in every prefill's and decode step's FFNs. A prefill through
+    both kernels holds each layer's flash output against ``attention_ref``
+    at that layer's own inputs (``FLASH_TOL``, ``FLASH_BF16_REL_L2``), and
+    its logits against the same prefill with the router's plain version
+    (``MOE_REL_L2``: the router alone). Its logits against ``attention_ref``
+    and against the chunked attention, each with the plain router, are
+    reported beside the (token, layer) pairs whose two experts differ from
+    those ``attention_ref`` gave, and not held: top-2 routing is
+    discontinuous, so the roundings in which two attentions differ send
+    some pairs to other experts, and 24 random bf16 layers carry that to the
+    logits (flash against ``attention_ref``: 2.8e-3 relative L2 a layer at
+    Mixtral's inputs, 9.0e-2 in its logits; NVIDIA H100 80GB HBM3, 700 W).
+    As a control, ``attention_ref`` on f32 copies of q, k, v (P kept in
+    f32, as flash's fma route keeps it; the output rounded to bf16 once)
+    runs the same prefill: a plain attention that differs from
+    ``attention_ref`` by its roundings alone."""
+    import torch
+
+    import repro_torch.kernels.flash_attention as fpkg
     import repro_torch.kernels.moe_route as pkg
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.moe_route.ref import moe_route_ref
+    from repro_torch.models import build_model
 
-    full = get_config("mixtral-8x7b")
-    cfg = full.with_overrides(num_layers=MIXTRAL_LAYERS, attn_impl="flash")
+    full = get_config(name)
+    cfg = full.with_overrides(num_layers=layers, attn_impl="flash")
+    chunked = build_model(cfg.with_overrides(attn_impl="chunked"))
+    kernel = fpkg.flash_attention
+    atol, rtol = FLASH_TOL[str(torch.bfloat16)]
 
     def plain(logits, k, capacity, *a):
         return moe_route_ref(logits, k, capacity)
 
     def compare(bundle, params, tokens):
-        with _swapped(pkg, "moe_route", plain):
-            lp = bundle.prefill(params, tokens=tokens)[0]
-        return bundle.prefill(params, tokens=tokens)[0], lp
+        worst = {"abs": 0.0, "rel": 0.0, "f32": 0.0, "bad": [], "n": 0}
+
+        def checked(q, k, v, causal=True, window=None, softcap=0.0, q_offset=0, **kw):
+            o = kernel(q, k, v, causal=causal, window=window, softcap=softcap,
+                       q_offset=q_offset, **kw)
+            ref = attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                                q_offset=q_offset)
+            worst["f32"] = max(worst["f32"], rel_l2(f32_attention(
+                q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset), ref))
+            rel = rel_l2(o, ref)
+            if not (torch.allclose(o.float(), ref.float(), atol=atol, rtol=rtol)
+                    and rel <= FLASH_BF16_REL_L2 and not torch.isnan(o).any()):
+                worst["bad"].append(worst["n"])
+            worst["abs"] = max(worst["abs"], max_err(o, ref))
+            worst["rel"] = max(worst["rel"], rel)
+            worst["n"] += 1
+            return o
+
+        with _swapped(fpkg, "flash_attention", checked):
+            lk = bundle.prefill(params, tokens=tokens)[0]
+        log(f"{label}: {tokens.shape[1]} tokens, the flash kernel layer by layer against "
+            f"attention_ref at each layer's inputs (q {cfg.num_heads} heads, k/v "
+            f"{cfg.num_kv_heads}, hd {cfg.head_dim}): {worst['n']} layers, max abs err "
+            f"{worst['abs']}, relative L2 at most {worst['rel']:.3e} (tolerances "
+            f"{(atol, rtol)}, {FLASH_BF16_REL_L2}); the f32 control against attention_ref "
+            f"at the same inputs: relative L2 at most {worst['f32']:.3e}")
+        check(worst["n"] == cfg.num_layers and not worst["bad"],
+              f"{label}: the flash kernel differs from attention_ref in layers "
+              f"{worst['bad']} of {worst['n']}")
+        experts = {}
+
+        def recording(tag):
+            def route(logits, k, capacity, *a):
+                out = moe_route_ref(logits, k, capacity)
+                experts.setdefault(tag, []).append(out[1].sort(-1).values)
+                return out
+            return route
+
+        def ref(q, k, v, causal=True, window=None, softcap=0.0, q_offset=0, **kw):
+            return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                                 q_offset=q_offset)
+
+        def f32(q, k, v, causal=True, window=None, softcap=0.0, q_offset=0, **kw):
+            return f32_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                                 q_offset=q_offset)
+
+        with _swapped(pkg, "moe_route", recording("flash")):
+            lr = bundle.prefill(params, tokens=tokens)[0]
+        logits = {}
+        for tag, attn in (("attention_ref", ref), ("f32 control", f32)):
+            with _swapped(pkg, "moe_route", recording(tag)), \
+                    _swapped(fpkg, "flash_attention", attn):
+                logits[tag] = bundle.prefill(params, tokens=tokens)[0]
+        with _swapped(pkg, "moe_route", recording("chunked")):
+            logits["chunked"] = chunked.prefill(params, tokens=tokens)[0]
+        lf = logits.pop("attention_ref")
+        moved = {tag: sum(int((a != b).any(-1).sum())
+                          for a, b in zip(experts["attention_ref"], experts[tag], strict=True))
+                 for tag in ("flash", "f32 control", "chunked")}
+        rels = {"flash": f"{rel_l2(lk, lf):.3e}",
+                **{tag: f"{rel_l2(lo, lf):.3e}" for tag, lo in logits.items()}}
+        log(f"{label}: {tokens.shape[1]} tokens, not held (see serve_moe): prefill logits "
+            f"relative L2 against attention_ref's {rels} (each with the plain router); "
+            f"(token, layer) pairs routed to other experts than attention_ref's {moved} of "
+            f"{tokens.shape[1] * cfg.num_layers}; argmax attention_ref {int(lf.argmax())}, "
+            f"flash {int(lk.argmax())}, "
+            f"{ {tag: int(lo.argmax()) for tag, lo in logits.items()} }")
+        return lk, lr
 
     launches, report = serve_phase(
-        args, "mixtral", cfg,
+        args, label, cfg,
         lambda prefills, ticks: {"flash_attention": cfg.num_layers * prefills,
                                  "moe_route": cfg.num_layers * (prefills + ticks)},
         compare, MOE_REL_L2,
-        note=f", {cfg.num_layers} of its {full.num_layers} layers (the weights of all 32 "
-             f"are 93.4 GB in bf16, above the card's 80 GB)")
+        note=f", {cfg.num_layers} of its {full.num_layers} layers ({why}); "
+             f"{full.num_experts} experts, top-{full.experts_per_token}")
     windows = {g[4] for g in launches["flash_attention"][2]}
-    check(windows == {full.sliding_window}, f"mixtral: flash windows {windows}")
+    check(windows == {full.sliding_window or None}, f"{label}: flash windows {windows}")
     return launches, report
 
 
@@ -3171,9 +3515,7 @@ def main() -> int:
     import repro_torch  # noqa: F401 — fails outside a checkout of the repo
 
     t_all = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    gpu = card()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     # the plain versions' f32 products in full f32, as the kernels compute
@@ -3198,11 +3540,18 @@ def main() -> int:
         rows.append(ssd_row(launches, args.reps))
         launches, _ = serve_mixtral(args)
         rows.append(moe_row(launches, args.reps))
+        for name, flash in (("olmo-1b", True), ("yi-9b", True), ("gemma3-4b", False)):
+            t0 = time.perf_counter()
+            serve_dense(args, name, flash)
+            log(f"{name}: serve phase took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        serve_phi(args)
+        log(f"phi: serve phase took {time.perf_counter() - t0:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s")
-    print(f"gpu: {smi[0] if smi else 'nvidia-smi gave nothing'}")
+    print(f"gpu: {gpu}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,11 +3,13 @@
 
 Every architecture is a frozen ``ArchConfig``; ``reduced()`` derives a tiny
 same-family config for CPU tests. The port registers the configurations its
-slices run: ``qwen3-14b`` (the dense serving path), ``mamba2-780m`` (the
-SSM family), ``mixtral-8x7b`` (the MoE family) and the paper's own presets
-``ignis-tiny`` / ``ignis-100m``. The other architectures of the JAX
-package come with their families (ROADMAP A.8). The analytic parameter
-count is not ported: a model's parameters are counted from its module.
+slices run: ``qwen3-14b``, ``olmo-1b``, ``yi-9b`` and ``gemma3-4b`` (the
+dense family), ``mamba2-780m`` (the SSM family), ``mixtral-8x7b`` and
+``phi3.5-moe-42b-a6.6b`` (the MoE family) and the paper's own presets
+``ignis-tiny`` / ``ignis-100m``. The other architectures of the JAX package
+come with their families (ROADMAP: the other families). The analytic
+parameter count is not ported: a model's parameters are counted from its
+module.
 """
 from __future__ import annotations
 
@@ -177,7 +179,7 @@ def get_config(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         import repro_torch.configs  # noqa: F401  (registers all)
     if name not in _REGISTRY:
-        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP A.8: the other "
+        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP: the other "
                        f"families of the model zoo); ported: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 

@@ -1,7 +1,8 @@
 """Distributed runtime pieces of the port: the elastic mesh (runtime
 grow/shrink of executor ranks and its autoscaling policy). The sharding
 rules, gradient compression and the pipeline schedule of the JAX package's
-``distributed/`` are not ported yet (ROADMAP A.2.5)."""
+``distributed/`` are not ported yet (ROADMAP: the rest of
+``distributed/``)."""
 from repro_torch.distributed.elastic import (  # noqa: F401
     ElasticPolicy,
     plan_reshard,

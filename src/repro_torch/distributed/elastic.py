@@ -36,7 +36,7 @@ def restore_elastic(ckpt_dir: str, step: int, cfg, ctx, target: dict) -> dict:
     ``param_specs``/``opt_specs`` of ``distributed/sharding.py``."""
     raise NotImplementedError(
         "restore_elastic needs distributed/sharding.py's param_specs/opt_specs, "
-        "which the port does not carry yet (ROADMAP A.2.5)")
+        "which the port does not carry yet (ROADMAP: the rest of distributed/)")
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,13 @@ a kernel with more than one route also counts its launches per route in
 ``launches_by_variant`` (flash attention: ``wgmma`` or ``fma``), so a run
 can show which route its path went through.
 
+A fake tensor (a tracer's: shapes without data, on either device) runs
+nothing: the wrapper returns fresh tensors of its results' shapes through
+``fake_call``, which the cost model's tracer (``profile.cost.trace``)
+records as one kernel call. So a traced program prices a kernel call the
+same on both devices, and a plain version whose shapes depend on the data
+(the bucket router's ``bincount``) is never traced.
+
 ``registry.py`` is the capability/selection/autotune layer the shuffle
 engine (core/shuffle_plan.py) consults per wide node.
 """
@@ -41,6 +48,8 @@ import pathlib
 import threading
 
 _sweep = threading.local()
+_priced = threading.local()
+_fake_type = None
 
 #: build directory for compiled kernels (listed in .gitignore)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -55,6 +64,41 @@ def sweeping():
         yield
     finally:
         _sweep.on = prev
+
+
+@contextlib.contextmanager
+def recording_calls():
+    """Collect the kernel calls made on fake tensors inside the block
+    (``fake_call``) in the list it yields, as ``(flops, bytes)`` pairs."""
+    prev = getattr(_priced, "calls", None)
+    _priced.calls = calls = []
+    try:
+        yield calls
+    finally:
+        _priced.calls = prev
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (shapes, dtype and device, no data)."""
+    global _fake_type
+    if _fake_type is None:
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        _fake_type = FakeTensor
+    return isinstance(t, _fake_type)
+
+
+def fake_call(operands, results, flops: float):
+    """A kernel call on fake tensors: nothing runs and no launch is
+    counted. ``results`` (fresh tensors of the kernel's result shapes) are
+    returned, and inside ``recording_calls`` the call is recorded with the
+    operations of its work and its bytes: each operand read once and each
+    result written once."""
+    calls = getattr(_priced, "calls", None)
+    if calls is not None:
+        calls.append((float(flops), float(sum(t.numel() * t.element_size()
+                                              for t in (*operands, *results)))))
+    return results
 
 
 def count_launch(fn, geometry: tuple, variant: str | None = None) -> None:

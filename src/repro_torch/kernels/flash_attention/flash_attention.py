@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _cuda, count_launch, counted, require_cuda
+from repro_torch.kernels import _cuda, count_launch, counted, fake_call, is_fake, require_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (64, 128, 256)
@@ -40,6 +40,18 @@ def variant(dtype, hd: int) -> str:
     return "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "fma"
 
 
+def live_pairs(Sq: int, kv_len: int, causal: bool, window, q_offset: int) -> int:
+    """The (row, key) pairs a call attends over: row i sits at position
+    i + q_offset and sees the keys below kv_len, at or before it where
+    causal, and fewer than ``window`` positions back where windowed."""
+    pairs = 0
+    for pos in range(q_offset, q_offset + Sq):
+        hi = min(pos, kv_len - 1) if causal else kv_len - 1
+        lo = max(0, pos - window + 1) if window else 0
+        pairs += max(0, hi - lo + 1)
+    return pairs
+
+
 def _entry():
     global _fn
     if _fn is None:
@@ -50,6 +62,8 @@ def _entry():
 
 
 def _check(q, k, v, q_offset, kv_len, window, softcap):
+    """The launch's preconditions; on fake tensors, all but the alignment,
+    which reads their addresses."""
     require_cuda(q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash kernel takes float32 or bfloat16 q, k, v of one "
@@ -69,13 +83,14 @@ def _check(q, k, v, q_offset, kv_len, window, softcap):
     if window is not None and window <= 0 or softcap < 0:
         raise ValueError(f"flash kernel: window {window} must be positive, softcap "
                          f"{softcap} non-negative")
-    if variant(q.dtype, hd) == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if (variant(q.dtype, hd) == "wgmma" and not is_fake(q)
+            and any(t.data_ptr() % 16 for t in (q, k, v))):
         raise ValueError("flash kernel (wgmma route): q, k, v must start on 16-byte "
                          "boundaries, as TMA reads them")
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise NotImplementedError(
             "the flash kernel has no backward yet: run it under torch.no_grad(); "
-            "its autograd.Function comes with the training slice (ROADMAP A.8)")
+            "its autograd.Function comes with the training path (ROADMAP)")
 
 
 @counted
@@ -87,6 +102,12 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=0.0,
     the kernel or raises."""
     Skv = k.shape[2]
     kv_len = Skv if kv_len is None else int(kv_len)
+    if is_fake(q):
+        if q.is_cuda:  # priced as the card's call: refused where a launch would be
+            _check(q, k, v, q_offset, kv_len, window, softcap)
+        B, H, Sq, hd = q.shape
+        flops = 4 * hd * B * H * live_pairs(Sq, kv_len, causal, window, q_offset)
+        return fake_call((q, k, v), (torch.empty_like(q),), flops)[0]
     if not q.is_cuda:
         return attention_ref(q, k[:, :, :kv_len], v[:, :, :kv_len], causal=causal,
                              window=window, softcap=softcap, q_offset=q_offset)

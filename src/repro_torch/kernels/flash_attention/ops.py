@@ -7,7 +7,7 @@ kernel or raises — it never falls back. The JAX wrapper pads Sq and Skv to
 block multiples; the CUDA kernel masks its own ragged edge, so nothing is
 padded here, and ``block_q``/``block_k`` are kept for the signature only
 (the kernel's tile sizes are its own). There is no backward yet: a CUDA
-call whose inputs require grad raises (ROADMAP A.8, the training slice).
+call whose inputs require grad raises (ROADMAP: the training path).
 """
 from __future__ import annotations
 

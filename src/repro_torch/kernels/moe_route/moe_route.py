@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _cuda, count_launch, counted, require_cuda
+from repro_torch.kernels import _cuda, count_launch, counted, fake_call, is_fake, require_cuda
 from repro_torch.kernels.moe_route.ref import moe_route_ref
 
 #: the most experts the kernel takes (its per-warp counts sit in shared memory)
@@ -69,6 +69,18 @@ def outputs(T: int, k: int, E: int, device):
             base.view(torch.bool).as_strided(shape, strides, 12 * n), base)
 
 
+def _check(logits, k):
+    """The launch's preconditions (none reads data)."""
+    require_cuda(logits)
+    if logits.dtype != torch.float32 or logits.ndim != 2:
+        raise ValueError(f"moe_route kernel takes (T, E) float32 logits, got "
+                         f"{tuple(logits.shape)} {logits.dtype}")
+    E = logits.shape[1]
+    if k not in (1, 2) or not k <= E <= MAX_EXPERTS:
+        raise ValueError(f"moe_route kernel takes k in (1, 2) and k <= E <= {MAX_EXPERTS}, "
+                         f"got k {k}, E {E}")
+
+
 @counted
 def moe_route_fwd(logits, k: int, capacity: int):
     """logits: (T, E) float32. Returns (weights f32, idx i32, pos i32, keep
@@ -76,16 +88,17 @@ def moe_route_fwd(logits, k: int, capacity: int):
     on ties, and each assignment's ordinal within its expert in token-major,
     slot-minor order. A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel or raises."""
+    if is_fake(logits):  # an operation per logit
+        if logits.is_cuda:  # priced as the card's call: refused where a launch would be
+            _check(logits, k)
+        T = logits.shape[0]
+        dev = logits.device
+        return fake_call((logits,), tuple(torch.empty((T, k), dtype=dt, device=dev) for dt in (
+            torch.float32, torch.int32, torch.int32, torch.bool)), logits.numel())
     if not logits.is_cuda:
         return moe_route_ref(logits, k, capacity)
-    require_cuda(logits)
-    if logits.dtype != torch.float32 or logits.ndim != 2:
-        raise ValueError(f"moe_route kernel takes (T, E) float32 logits, got "
-                         f"{tuple(logits.shape)} {logits.dtype}")
+    _check(logits, k)
     T, E = logits.shape
-    if k not in (1, 2) or not k <= E <= MAX_EXPERTS:
-        raise ValueError(f"moe_route kernel takes k in (1, 2) and k <= E <= {MAX_EXPERTS}, "
-                         f"got k {k}, E {E}")
     w, idx, pos, keep, buf = outputs(T, k, E, logits.device)
     if T == 0:
         return w, idx, pos, keep

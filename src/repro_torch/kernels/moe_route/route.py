@@ -40,7 +40,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _cuda, count_launch, counted, require_cuda, threads_for
+from repro_torch.kernels import (_cuda, count_launch, counted, fake_call, is_fake, require_cuda,
+                                 threads_for)
 from repro_torch.kernels.moe_route.ref import bucket_route_ref
 
 #: the most buckets the kernel takes: one warp's table of counts and the
@@ -97,6 +98,17 @@ def outputs(n: int, p: int, scratch: int, device):
             base.as_strided((p,), (1,), n), base, off)
 
 
+def _check(dest, p):
+    """The launch's preconditions (none reads data)."""
+    require_cuda(dest)
+    if dest.dtype != torch.int32 or dest.ndim != 1:
+        raise ValueError(f"bucket_route kernel takes (N,) int32 destinations, "
+                         f"got {tuple(dest.shape)} {dest.dtype}")
+    if not 1 <= p <= MAX_BUCKETS:
+        raise ValueError(f"bucket_route kernel takes 1 <= p <= {MAX_BUCKETS} buckets "
+                         f"(one warp's table of counts in 128 KB of shared memory), got {p}")
+
+
 @counted
 def bucket_route_fwd(dest: torch.Tensor, p: int, capacity: int,
                      block: int = 512):
@@ -105,16 +117,17 @@ def bucket_route_fwd(dest: torch.Tensor, p: int, capacity: int,
     i32, keep (N,) bool, counts (p,) i32 — final per-destination demand).
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
+    if is_fake(dest):  # an operation per row
+        if dest.is_cuda:  # priced as the card's call: refused where a launch would be
+            _check(dest, int(p))
+        n, dev = dest.shape[0], dest.device
+        return fake_call((dest,), (torch.empty(n, dtype=torch.int32, device=dev),
+                                   torch.empty(n, dtype=torch.bool, device=dev),
+                                   torch.empty(int(p), dtype=torch.int32, device=dev)), n)
     if not dest.is_cuda:
         return bucket_route_ref(dest, p, capacity)
-    require_cuda(dest)
-    if dest.dtype != torch.int32 or dest.ndim != 1:
-        raise ValueError(f"bucket_route kernel takes (N,) int32 destinations, "
-                         f"got {tuple(dest.shape)} {dest.dtype}")
     p, capacity = int(p), int(capacity)
-    if not 1 <= p <= MAX_BUCKETS:
-        raise ValueError(f"bucket_route kernel takes 1 <= p <= {MAX_BUCKETS} buckets "
-                         f"(one warp's table of counts in 128 KB of shared memory), got {p}")
+    _check(dest, p)
     n = dest.shape[0]
     warps, rows = geometry(p, block)
     nbytes = scratch_bytes(n, p, block)

@@ -31,7 +31,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _cuda, count_launch, counted, require_cuda, threads_for
+from repro_torch.kernels import (_cuda, count_launch, counted, fake_call, is_fake, require_cuda,
+                                 threads_for)
 from repro_torch.kernels.segment_reduce.ref import segment_scan_plain
 
 _OPS = {"sum": 0, "max": 1, "min": 2}
@@ -77,6 +78,18 @@ def _scan_cuda(v: torch.Tensor, flags: torch.Tensor, op: str, block: int) -> tor
     return out
 
 
+def _check(values, boundaries):
+    """The launch's preconditions (none reads data)."""
+    require_cuda(values, boundaries)
+    if (values.dtype not in _DTYPES or values.ndim != 2
+            or boundaries.dtype != torch.bool
+            or boundaries.shape != values.shape[:1]):
+        raise ValueError(
+            f"segment_reduce kernel takes (N, D) int32/float32 values and (N,) "
+            f"bool boundaries, got {tuple(values.shape)} {values.dtype} and "
+            f"{tuple(boundaries.shape)} {boundaries.dtype}")
+
+
 @counted
 def segment_reduce_fwd(values: torch.Tensor, boundaries: torch.Tensor,
                        op: str = "sum", block: int = 256) -> torch.Tensor:
@@ -86,16 +99,13 @@ def segment_reduce_fwd(values: torch.Tensor, boundaries: torch.Tensor,
     launches the kernel or raises."""
     if op not in _OPS:
         raise ValueError(f"segment scan op must be sum/max/min, got {op!r}")
+    if is_fake(values):  # a combine per element
+        if values.is_cuda:  # priced as the card's call: refused where a launch would be
+            _check(values, boundaries)
+        return fake_call((values, boundaries), (torch.empty_like(values),), values.numel())[0]
     if not values.is_cuda:
         return segment_scan_plain(values, boundaries, op)
-    require_cuda(values, boundaries)
-    if (values.dtype not in _DTYPES or values.ndim != 2
-            or boundaries.dtype != torch.bool
-            or boundaries.shape != values.shape[:1]):
-        raise ValueError(
-            f"segment_reduce kernel takes (N, D) int32/float32 values and (N,) "
-            f"bool boundaries, got {tuple(values.shape)} {values.dtype} and "
-            f"{tuple(boundaries.shape)} {boundaries.dtype}")
+    _check(values, boundaries)
     if values.numel() == 0:
         return torch.empty_like(values)
     out = _scan_cuda(values, boundaries.view(torch.uint8), op, block)

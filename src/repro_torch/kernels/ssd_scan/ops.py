@@ -18,8 +18,8 @@ from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
 def ssd_scan(x, dt, A_log, Bm, Cm, chunk):
     """x: (B, S, H, P); dt: (B, S, H); A_log: (H,); Bm/Cm: (B, S, G, N).
     Returns (y (B, S, H, P), final state (B, H, P, N) f32). There is no
-    backward yet: a CUDA call whose inputs require grad raises (ROADMAP
-    A.8.1, the training slice)."""
+    backward yet: a CUDA call whose inputs require grad raises (ROADMAP:
+    the training path)."""
     S = x.shape[1]
     pad = (-S) % chunk
     if pad:

@@ -33,7 +33,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _cuda, count_launch, counted, require_cuda, threads_for
+from repro_torch.kernels import (_cuda, count_launch, counted, fake_call, is_fake, require_cuda,
+                                 threads_for)
 from repro_torch.kernels.ssd_scan.ref import prefix_scan_ref
 
 _OPS = {"sum": 0, "max": 1, "min": 2}
@@ -74,6 +75,14 @@ def scratch_bytes(n: int, block: int) -> int:
     return 8 + 8 * -(-n // rows_per_tile(block))
 
 
+def _check(x):
+    """The launch's preconditions (none reads data)."""
+    require_cuda(x)
+    if x.dtype not in _DTYPES or x.ndim != 1:
+        raise ValueError(f"prefix_scan kernel takes (N,) int32/float32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+
+
 @counted
 def prefix_scan_fwd(x: torch.Tensor, op: str = "sum", block: int = 512,
                     reverse: bool = False) -> torch.Tensor:
@@ -83,12 +92,13 @@ def prefix_scan_fwd(x: torch.Tensor, op: str = "sum", block: int = 512,
     launches the kernel or raises."""
     if op not in _OPS:
         raise ValueError(f"prefix scan op must be sum/max/min, got {op!r}")
+    if is_fake(x):  # a combine per element
+        if x.is_cuda:  # priced as the card's call: refused where a launch would be
+            _check(x)
+        return fake_call((x,), (torch.empty_like(x),), x.numel())[0]
     if not x.is_cuda:
         return prefix_scan_ref(x, op, reverse)
-    require_cuda(x)
-    if x.dtype not in _DTYPES or x.ndim != 1:
-        raise ValueError(f"prefix_scan kernel takes (N,) int32/float32, got "
-                         f"{tuple(x.shape)} {x.dtype}")
+    _check(x)
     n = x.shape[0]
     out = torch.empty_like(x)
     if n == 0:

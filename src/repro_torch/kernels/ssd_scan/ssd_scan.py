@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _cuda, count_launch, counted, require_cuda
+from repro_torch.kernels import _cuda, count_launch, counted, fake_call, is_fake, require_cuda
 from repro_torch.kernels.ssd_scan.ref import ssd_ref
 
 #: the largest chunk the kernel takes (a block scans the chunk's decays, two
@@ -54,7 +54,17 @@ def _check(x, dt, A_log, Bm, Cm, chunk):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A_log, Bm, Cm)):
         raise NotImplementedError(
             "the ssd_scan kernel has no backward yet: run it under torch.no_grad(); "
-            "its autograd.Function comes with the training slice (ROADMAP A.8.1)")
+            "its autograd.Function comes with the training path (ROADMAP)")
+
+
+def work_flops(x_shape, bn_shape, chunk) -> int:
+    """Operations of a call: C·Bᵀ over the causal pairs of each (batch,
+    chunk, group), the scores times x·Δ over the same pairs, C against the
+    carried state and the state update, per head."""
+    B, S, H, P = x_shape
+    G, N = bn_shape[2], bn_shape[3]
+    nc, pairs = S // chunk, chunk * (chunk + 1) // 2
+    return 2 * B * nc * (G * pairs * N + H * (pairs * P + 2 * chunk * N * P))
 
 
 def workspace_floats(B, S, H, P, G, N, chunk) -> int:
@@ -70,6 +80,13 @@ def ssd_scan_fwd(x, dt, A_log, Bm, Cm, chunk):
     N); S % chunk == 0. Returns (y (B, S, H, P) in x's dtype, final state
     (B, H, P, N) f32). A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel or raises."""
+    if is_fake(x):
+        if x.is_cuda:  # priced as the card's call: refused where a launch would be
+            _check(x, dt, A_log, Bm, Cm, chunk)
+        B, S, H, P = x.shape
+        state = torch.empty((B, H, P, Bm.shape[3]), dtype=torch.float32, device=x.device)
+        return fake_call((x, dt, A_log, Bm, Cm), (torch.empty_like(x), state),
+                         work_flops(x.shape, Bm.shape, chunk))
     if not x.is_cuda:
         return ssd_ref(x, dt, A_log, Bm, Cm, chunk)
     _check(x, dt, A_log, Bm, Cm, chunk)

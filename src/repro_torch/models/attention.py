@@ -6,7 +6,7 @@ The chunked path here is the plain one; ``cfg.attn_impl == "flash"``
 dispatches prefill to the flash kernel (``repro_torch.kernels.
 flash_attention``: CUDA on the card, its plain version on the CPU).
 Cross-attention (the JAX function's ``kv=`` argument) comes with the
-encoder-decoder family (ROADMAP A.8).
+encoder-decoder family (ROADMAP: the other families).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Shared building blocks: norms, RoPE, the SwiGLU MLP, initialisers
 (the port of ``repro.models.layers``; the loss functions come with the
-training slice, ROADMAP A.8).
+training path, ROADMAP).
 
 Parameters live in ``nn.Module``s (the JAX package's ``make_*_params``
 functions become their constructors) whose tensors keep the JAX package's

@@ -11,7 +11,8 @@ Bundle surface (everything the serving engine needs):
 ``build_module(cfg, device)`` makes a family's module with its weights left
 uninitialised (``interop.params_from_reference`` fills one). Training
 (``train_loss``/``train_step``), the abstract input specs of the dry run and
-the hybrid, VLM and audio families come later (ROADMAP A.8).
+the hybrid, VLM and audio families come later (ROADMAP: the training
+path, the other families).
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ class ModelBundle:
 
 def _unported(cfg: ArchConfig):
     return NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP A.8: the other families of the "
+        f"family {cfg.family!r} is not ported yet (ROADMAP: the other families of the "
         f"model zoo)")
 
 

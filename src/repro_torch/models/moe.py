@@ -14,7 +14,7 @@ products, the scatter and the loss stay plain torch, as they are plain jnp
 outside any kernel in the JAX package.
 
 Expert parallelism (the JAX package's ``moe_ep``) is not ported
-(ROADMAP A.8.3): the JAX ``moe_apply`` takes it only on a mesh whose data
+(ROADMAP: ``moe_ep``): the JAX ``moe_apply`` takes it only on a mesh whose data
 axis has several devices, and the port runs on one.
 """
 from __future__ import annotations

@@ -4,7 +4,7 @@ head (the port of ``repro.models.ssm``, serving surface).
 Decode state is O(1): per-layer (conv_tail, ssm_state) — no KV cache. The
 JAX package scans the stacked layers; here they are an ``nn.ModuleList``
 and the scan is a loop. Prefill and decode run under ``torch.no_grad()``:
-this is the serving path. Training comes later (ROADMAP A.8.1).
+this is the serving path. Training comes with the training path (ROADMAP).
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@ layer (mixtral).
 
 The JAX package stacks layers on a leading axis and runs them with
 ``lax.scan``; here the layers are an ``nn.ModuleList`` and the scan is a
-loop over it. The VLM patch prefix comes with its family (ROADMAP A.8).
+loop over it. The VLM patch prefix comes with its family (ROADMAP: the
+other families).
 Prefill and decode run under ``torch.no_grad()``: this is the serving path.
 """
 from __future__ import annotations
@@ -18,7 +19,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import MLP, Norm, apply_norm, embed_init, mlp, weight
 from repro_torch.models.moe import MoE, moe_apply
 
-_TODO = "is not ported yet (ROADMAP A.8: the other families of the model zoo)"
+_TODO = "is not ported yet (ROADMAP: the other families of the model zoo)"
 
 
 def _dtype(cfg) -> torch.dtype:

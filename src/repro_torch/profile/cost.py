@@ -1,42 +1,166 @@
-"""The cost model's history half: learn from having run work.
+"""The cost model: price work before running it, learn from having run it
+(the port of ``repro.profile.cost``; docs/profiling.md §cost).
 
-Observed durations of tasks keyed by structural signature (``node_sig``) —
-the empirical side that speculative-timeout derivation reads — and the
-static path of the fusion policy (``should_fuse``: a first-sighting chain
-fuses only if one run already repays the stage build). Every worker carries
-one; the scheduler feeds it task history.
+Two complementary halves share one object so scheduler decisions have a
+single thing to consult:
 
-Pricing work before it runs (the reference prices jaxprs and compiled HLO)
-is not part of this module yet.
+* **static pricing** — walk an aten-level FX graph (``price_graph``;
+  ``price_fn`` traces a function to one on fake tensors, with no device
+  work: the counterpart of the reference's jaxpr on ``ShapeDtypeStruct``s)
+  or compiled HLO text (``price_hlo``, through the port's copy of the
+  ``launch/hlo_cost.py`` parser) into a ``CostEstimate`` (flops, HBM bytes,
+  wire bytes, dispatches), then convert to predicted seconds through
+  ``DeviceParams`` — the model *sums* the terms (the runtime interleaves
+  phases) and lets calibration absorb overlap;
+* **dynamic history** — observed durations of tasks keyed by structural
+  signature (``node_sig``), the empirical side that speculative-timeout
+  derivation reads, and the sightings of fused-stage signatures that the
+  fusion policy (``should_fuse``) weighs.
+
+Graph pricing follows the reference's jaxpr rules op for op: one dispatch
+per op, HBM bytes as operand plus result bytes, ``2·batch·M·N·K`` for a
+contraction, no flops for ops that only move or reshape data
+(``_FREE_OPS``, the aten counterparts of the reference's free primitives),
+one flop per output element for every other op. Two rules are the port's
+own: an allocation (``empty``) launches nothing in torch and prices
+nothing, and a call of one of the port's kernel wrappers prices as one
+kernel call — one dispatch, its operands' and results' bytes, and the
+operations of its work (``repro_torch.kernels.fake_call``) — where the
+reference prices a ``pallas_call`` body once per call.
 """
 from __future__ import annotations
 
 import statistics
 import threading
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 
 @dataclass(frozen=True)
 class DeviceParams:
-    """The constants the fusion policy weighs: per-call dispatch overhead
-    against the cost of building a fused stage, per operator."""
+    """Sustained-rate device constants. Defaults are deliberately modest
+    host-CPU figures (the reference's, so the fusion policy decides as the
+    reference does); ``calibration.calibrate()`` replaces the rates with
+    measured ones, and ``CostModel.fit`` rescales the whole prediction
+    against traced reality."""
 
-    dispatch_s: float = 50e-6
-    compile_s_per_op: float = 8e-3
+    flops_per_s: float = 5e10
+    hbm_bytes_per_s: float = 1e10
+    wire_bytes_per_s: float = 2e9
+    dispatch_s: float = 50e-6       # per eager/jit call overhead
+    compile_s_per_op: float = 8e-3  # the reference's XLA compile cost per fused operator
+
+
+@dataclass(frozen=True)
+class CostEstimate:
+    flops: float = 0.0
+    hbm_bytes: float = 0.0
+    wire_bytes: float = 0.0
+    dispatches: float = 0.0
+
+    def __add__(self, other: "CostEstimate") -> "CostEstimate":
+        return CostEstimate(
+            self.flops + other.flops,
+            self.hbm_bytes + other.hbm_bytes,
+            self.wire_bytes + other.wire_bytes,
+            self.dispatches + other.dispatches,
+        )
+
+    def scaled(self, k: float) -> "CostEstimate":
+        return CostEstimate(self.flops * k, self.hbm_bytes * k,
+                            self.wire_bytes * k, self.dispatches * k)
+
+
+#: aten ops that move or reshape data without arithmetic: the counterparts
+#: of the reference's free primitives (broadcast_in_dim, reshape, squeeze,
+#: transpose, convert_element_type, slice, dynamic_(update_)slice,
+#: concatenate, pad, gather, scatter, copy, device_put, stop_gradient, iota)
+_FREE_OPS = frozenset((
+    "view", "_unsafe_view", "reshape", "expand", "squeeze", "unsqueeze",
+    "permute", "transpose", "t", "alias", "as_strided", "detach",
+    "lift_fresh_copy", "_to_copy", "slice", "select", "narrow", "split",
+    "split_with_sizes", "unbind", "slice_scatter", "select_scatter", "cat",
+    "stack", "constant_pad_nd", "pad", "gather", "scatter", "index",
+    "index_select", "index_put", "take", "copy", "copy_", "clone", "repeat",
+    "arange", "full", "full_like", "zeros", "zeros_like", "ones", "ones_like",
+    "scalar_tensor",
+))
+#: allocations: torch launches no device work for them
+_ALLOC_OPS = frozenset(("empty", "empty_like", "empty_strided", "new_empty",
+                        "new_empty_strided"))
+#: contractions (``matmul``, ``einsum`` and ``linear`` reach an aten graph as
+#: these), priced 2·(output elements)·K
+_DOT_OPS = frozenset(("mm", "addmm", "bmm", "baddbmm", "dot", "mv"))
+
+
+def _tensors(v):
+    """The tensors in a node's value (a tensor, or a tuple/list of them)."""
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        return [v]
+    if isinstance(v, (tuple, list)):
+        return [t for x in v for t in _tensors(x)]
+    return []
+
+
+def _nbytes(v) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(v))
+
+
+def _nelems(v) -> int:
+    return sum(t.numel() for t in _tensors(v))
+
+
+def _operand_nodes(node):
+    """The value-carrying nodes among a node's arguments, flattened."""
+    import torch.fx as fx
+
+    out = []
+
+    def walk(a):
+        if isinstance(a, fx.Node):
+            if a.op != "get_attr":
+                out.append(a)
+        elif isinstance(a, (tuple, list)):
+            for x in a:
+                walk(x)
+        elif isinstance(a, dict):
+            for x in a.values():
+                walk(x)
+
+    walk(node.args)
+    walk(node.kwargs)
+    return out
+
+
+def _contracted(node, name: str) -> int:
+    """K of a contraction node: its first product operand's last extent
+    (``addmm``/``baddbmm`` take the bias first)."""
+    a = _operand_nodes(node)[1 if name in ("addmm", "baddbmm") else 0]
+    return int(a.meta["val"].shape[-1])
+
+
+def _op_name(target) -> str:
+    packet = getattr(target, "overloadpacket", None)
+    return packet.__name__ if packet is not None else getattr(target, "__name__", str(target))
 
 
 class CostModel:
     """See module docstring. Thread-safe: gang tasks consult one model from
     several scheduler threads at once."""
 
-    def __init__(self, params: DeviceParams | None = None, history: int = 64):
+    def __init__(self, params: DeviceParams | None = None,
+                 history: int = 64):
         self.params = params or DeviceParams()
+        self._scale = 1.0  # fit() multiplier applied to every prediction
         self._lock = threading.Lock()
         self._history = history
-        self._task_durs: dict = {}        # key -> deque[float seconds]
+        self._task_durs: dict = {}      # key -> deque[float seconds]
         self._stage_sightings: dict = {}  # stage signature -> times planned
         self.stats = {
+            "jaxprs_priced": 0,  # graphs priced (the reference's key)
+            "hlo_priced": 0,
             "fuse_decisions": 0,
             "fuse_deferrals": 0,
             "auto_timeouts": 0,
@@ -44,15 +168,103 @@ class CostModel:
         }
 
     # ------------------------------------------------------------------
-    # cost-aware fusion boundaries (DagEngine.plan)
+    # static pricing
+    # ------------------------------------------------------------------
+    def price_graph(self, gm, nblocks: int = 1) -> CostEstimate:
+        """Price an aten-level ``torch.fx.GraphModule`` (``make_fx``'s) by
+        the module docstring's rules, adding the kernel calls its trace met
+        (``gm.meta["kernel_calls"]``, set by ``price_fn``). ``nblocks``
+        scales the estimate across a node's block loop."""
+        import torch
+
+        flops = hbm = dispatches = 0.0
+        for node in gm.graph.nodes:
+            target = node.target
+            # a higher-order op (``torch.cond``, ``while_loop``) is one op, as
+            # the reference's walker prices ``cond`` and ``while`` (their
+            # bodies sit under params it does not enter); getitem and other
+            # python-level glue are no op at all
+            if node.op != "call_function" or not isinstance(
+                    target, (torch._ops.OpOverload, torch._ops.HigherOrderOperator)):
+                continue
+            name = _op_name(target)
+            if name in _ALLOC_OPS:
+                continue
+            out = node.meta.get("val")
+            hbm += sum(_nbytes(a.meta.get("val")) for a in _operand_nodes(node))
+            hbm += _nbytes(out)
+            dispatches += 1
+            if name in _DOT_OPS:
+                flops += 2.0 * _nelems(out) * _contracted(node, name)
+            elif name not in _FREE_OPS:
+                flops += _nelems(out)
+        est = CostEstimate(flops, hbm, 0.0, dispatches)
+        for call_flops, call_bytes in gm.meta.get("kernel_calls", ()):
+            est = est + CostEstimate(call_flops, call_bytes, 0.0, 1.0)
+        with self._lock:
+            self.stats["jaxprs_priced"] += 1
+        return est.scaled(nblocks)
+
+    def price_hlo(self, hlo_text: str, collective: bool = True) -> CostEstimate:
+        """Price compiled HLO text through the port's copy of the parser
+        (launch/hlo_cost.py): exact flops/HBM/wire accounting including
+        while-loop trip counts and fusion boundary buffers."""
+        from repro_torch.launch.hlo_cost import analyze
+
+        a = analyze(hlo_text)
+        with self._lock:
+            self.stats["hlo_priced"] += 1
+        return CostEstimate(
+            flops=a["flops_per_device"],
+            hbm_bytes=a["hbm_bytes_per_device"],
+            wire_bytes=a["wire_bytes_per_device"] if collective else 0.0,
+            dispatches=1.0,
+        )
+
+    def price_fn(self, fn, *tensors, nblocks: int = 1) -> CostEstimate:
+        """Price a python function by tracing it to an aten graph on fake
+        copies of ``tensors`` (real, meta or fake tensors, or pytrees of
+        them: shapes, dtypes and devices only — no device work, and a CUDA
+        tensor stays a CUDA one). A call of one of the port's kernel
+        wrappers prices as one kernel call, on either device."""
+        return self.price_graph(trace(fn, *tensors), nblocks)
+
+    def predict_s(self, est: CostEstimate) -> float:
+        """Predicted wall seconds for an estimate — summed terms (see
+        module docstring), scaled by the ``fit()`` calibration factor."""
+        p = self.params
+        return self._scale * (
+            est.flops / p.flops_per_s
+            + est.hbm_bytes / p.hbm_bytes_per_s
+            + est.wire_bytes / p.wire_bytes_per_s
+            + est.dispatches * p.dispatch_s
+        )
+
+    def fit(self, pairs: list[tuple[float, float]]) -> float:
+        """Calibrate against (predicted_s, observed_s) pairs: the scale
+        becomes the median observed/predicted ratio (robust to a stray
+        straggler pair). Returns the new scale."""
+        ratios = [obs / pred for pred, obs in pairs if pred > 0 and obs > 0]
+        if ratios:
+            self._scale *= statistics.median(ratios)
+        return self._scale
+
+    def with_params(self, **kw) -> "CostModel":
+        m = CostModel(replace(self.params, **kw), history=self._history)
+        m._scale = self._scale
+        return m
+
+    # ------------------------------------------------------------------
+    # decision 1: cost-aware fusion boundaries (DagEngine.plan)
     # ------------------------------------------------------------------
     def should_fuse(self, signature, n_ops: int, nblocks: int = 1) -> bool:
         """Is building this narrow chain into one fused stage worth it?
 
         On the FIRST sighting of a signature the build is unamortised — fuse
         only if this single run already saves more dispatch overhead
-        (``(n_ops - 1) x nblocks`` calls) than the build costs. From the
-        second sighting on, the plan cache amortises it: always fuse."""
+        (``(n_ops - 1) x nblocks`` calls) than the build costs
+        (``compile_s_per_op x n_ops``). From the second sighting on, the
+        plan cache amortises it: always fuse."""
         p = self.params
         with self._lock:
             seen = self._stage_sightings.get(signature, 0)
@@ -72,7 +284,7 @@ class CostModel:
             return self._stage_sightings.get(signature, 0) > 0
 
     # ------------------------------------------------------------------
-    # cost-derived speculative timeouts (IJob._evaluator)
+    # decision 2: cost-derived speculative timeouts (IJob._evaluator)
     # ------------------------------------------------------------------
     def observe_task(self, key, dur_s: float):
         """Record one observed task duration under a structural key —
@@ -110,5 +322,20 @@ class CostModel:
     def snapshot(self) -> dict:
         with self._lock:
             return {**self.stats,
+                    "scale": self._scale,
                     "task_keys": len(self._task_durs),
                     "stage_signatures": len(self._stage_sightings)}
+
+
+def trace(fn, *tensors):
+    """``fn`` traced to an aten-level ``GraphModule`` on fake copies of
+    ``tensors`` (``make_fx``, fake mode: no data is read and nothing runs
+    on a device). The port's kernel calls met in the trace are recorded, as ``(flops, bytes)`` pairs, in ``gm.meta["kernel_calls"]``."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    from repro_torch.kernels import recording_calls
+
+    with recording_calls() as calls:
+        gm = make_fx(fn, tracing_mode="fake")(*tensors)
+    gm.meta["kernel_calls"] = tuple(calls)
+    return gm

@@ -78,8 +78,9 @@ def test_configs_copy_the_reference(name):
 
 def test_qwen3_14b_cites_its_published_config():
     assert t_config("qwen3-14b").source == "[hf:Qwen/Qwen3-14B; hf]"
-    assert list_configs() == ["ignis-100m", "ignis-tiny", "mamba2-780m", "mixtral-8x7b",
-                              "qwen3-14b"]
+    assert list_configs() == ["gemma3-4b", "ignis-100m", "ignis-tiny", "mamba2-780m",
+                              "mixtral-8x7b", "olmo-1b", "phi3.5-moe-42b-a6.6b", "qwen3-14b",
+                              "yi-9b"]
     assert t_config("mamba2-780m").source == j_config("mamba2-780m").source
     assert t_config("mixtral-8x7b").source == j_config("mixtral-8x7b").source
 
@@ -87,13 +88,13 @@ def test_qwen3_14b_cites_its_published_config():
 def test_unported_architectures_and_families_raise():
     """The hybrid, audio and VLM families are still to port; the SSM and MoE
     families build (an MoE ``ignis-tiny`` too)."""
-    with pytest.raises(KeyError, match="ROADMAP A.8"):
-        t_config("yi-9b")
+    with pytest.raises(KeyError, match="ROADMAP: the other families"):
+        t_config("whisper-tiny")
     for name in ("jamba-1.5-large-398b", "whisper-tiny", "internvl2-1b"):
         cfg = ArchConfig(**dataclasses.asdict(j_config(name)))
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP: the other families"):
             t_build(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: the other families"):
         t_tf.TransformerLM(ArchConfig(**dataclasses.asdict(j_config("internvl2-1b").reduced()
                                                            .with_overrides(family="dense"))),
                            device="meta")
