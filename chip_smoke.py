@@ -7,9 +7,10 @@ profile package on its frames), the paper's evaluation apps in ignis and
 spark mode, the recovery tier (checkpoints, chaos, the elastic mesh,
 streaming ingestion), then seven models of three families served through
 ``ServeFrontDoor`` (Qwen3-14B, Mamba2-780M, Mixtral-8x7B, OLMo-1B, Yi-9B,
-Gemma3-4B, Phi-3.5-MoE) — holds every hand-written kernel against its plain
-torch version at the shapes those paths gave it, and reports. Run from the
-repository root:
+Gemma3-4B, Phi-3.5-MoE), then the training path (the paper's hybrid
+training app, and OLMo-1B, Mamba2-780M and Mixtral-8x7B at full width) —
+holds every hand-written kernel against its plain torch version at the
+shapes those paths gave it, and reports. Run from the repository root:
 
     PYTHONPATH=src python3 chip_smoke.py          # N = 2^26 words, p = 8
 
@@ -167,7 +168,33 @@ non-zero):
              gives the earlier design's recorded time, ``RECORDED_EARLIER_MS``,
              which this run does not measure); the router at the largest
              prefill and at a decode tick (T = 4), by device time
-             (``torch.profiler``) and the wrapper's host µs per call.
+             (``torch.profiler``) and the wrapper's host µs per call;
+7. train   — after the serve phases' memory is released: the paper's
+             hybrid training app (``examples/torch_hybrid_train.py``'s
+             dataflow phase on a ``cuda`` worker, then ``launch.train`` of
+             ``ignis-100m`` on the packed corpus, ``TRAIN_HYBRID``): the
+             loss falls, checkpoints at the middle step and the end, the
+             saved tree restored bit for bit, a second call resuming from
+             the latest step with its steps advancing, and no kernel
+             launched (the config's chunked attention); then ``TRAIN_RUNS``
+             ``bundle.train_step``s each of OLMo-1B (16 layers, flash,
+             remat full), Mamba2-780M (48 layers, the SSD scan) and
+             Mixtral-8x7B at ``MIXTRAL_TRAIN_LAYERS`` of its 32 layers (the
+             router), random bf16 weights, batches fed by
+             ``TrainPipeline`` (each device batch held against its host
+             batch). Checks: the path's kernel launched layers x steps x 2
+             times (forward and remat's recompute) and no other, every
+             loss finite, each kernel's ``autograd.Function`` at layer 0's
+             own inputs: forward against the plain version, backward equal
+             to the plain version's autograd bit for bit; OLMo's first
+             loss against the chunked attention's (``TRAIN_LOSS_REL``);
+             Mixtral's router gradient non-zero with the aux loss left
+             out. Reports step ms, tokens/s, peak memory, one step's
+             device busy time and idle share, whole-model gradients through
+             the kernels against the plain versions (not held: random bf16
+             stacks are chaotic), each kernel's forward device ms against
+             its plain backward's, and checkpoint save and restore ms; the
+             kernels line gains each model kernel's ``train_launches``.
 
 The last two lines are the ``kernels`` JSON object (with the card's name and
 power limit just before it) and ``{"ok": true, "device": {...}}``.
@@ -1279,19 +1306,26 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def device_busy_ms(fn):
+def device_busy_ms(fn, what=None):
     """(host ms to the device's end, device busy ms) of one call of ``fn``
     under ``torch.profiler`` (CUDA activity; the sum of the device's kernel
     and copy times: one stream, so they do not overlap); busy is None where
-    the profiler sees no device time."""
+    the profiler sees no device time. With ``what``, the six heaviest
+    kernels are logged under it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, ms = timed(fn)
-    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages()
-             if getattr(e, "device_type", None) == DeviceType.CUDA)
+    evs = [e for e in prof.key_averages() if getattr(e, "device_type", None) == DeviceType.CUDA]
+    for e in sorted(evs, key=dev_us, reverse=True)[:6] if what else ():
+        log(f"where: {what}:   {dev_us(e) / 1e3:9.3f} ms in {e.count:5d} launches of "
+            f"{e.key[:90]}")
+    us = sum(dev_us(e) for e in evs)
     return ms, (us / 1e3 if us else None)
 
 
@@ -3310,6 +3344,591 @@ def serve_moe(args, label, name, layers, why):
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# the train phase
+# ---------------------------------------------------------------------------
+
+#: the train runs: the hybrid app (``examples/torch_hybrid_train.py``'s two
+#: phases at ``ignis-100m``: batch, sequence, steps, then the resumed run's
+#: steps), and (batch, sequence, steps) of the three model runs
+TRAIN_HYBRID = dict(batch=8, seq_len=256, steps=60, more=80)
+TRAIN_RUNS = {"olmo": (4, 2048, 6), "mamba": (4, 2048, 6), "mixtral": (1, 2048, 4)}
+#: Mixtral-8x7B's layers trained at full width: all 32 are 46.7e9 parameters,
+#: some 560 GB with bf16 weights and gradients and f32 Adam moments (12 B a
+#: parameter); 2 are 3.2e9, some 45 GB with the optimizer's temporaries
+MIXTRAL_TRAIN_LAYERS = 2
+#: OLMo-1B's first-step loss through flash against the chunked attention's
+#: from the same weights and batch: 16 random bf16 layers carry each layer's
+#: bf16 rounding difference (the serve path's 1.3e-2 in logits); the loss, a
+#: mean over 8192 tokens, moves far less
+TRAIN_LOSS_REL = 2e-2
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic kernels where torch has them (``index_add_``,
+    ``scatter_add_``: the backwards of ``repeat_interleave`` and
+    ``gather``), so one computation run twice gives the same bits."""
+    import torch
+
+    prev, warn = (torch.are_deterministic_algorithms_enabled(),
+                  torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=warn)
+
+
+def _recording(store, fn, calls=1):
+    """``fn`` that keeps contiguous detached copies of the positional
+    arguments of its first ``calls`` calls in ``store``, one list a call
+    (the path's own inputs to a kernel: the first layers')."""
+    import torch
+
+    def wrapped(*a, **kw):
+        if len(store) < calls:
+            store.append([x.detach().clone(memory_format=torch.contiguous_format)
+                          if isinstance(x, torch.Tensor) else x for x in a])
+        return fn(*a, **kw)
+    return wrapped
+
+
+def _same_grads(label, fn_grads, plain_a, plain_b, names):
+    """Checks the Function's gradients equal the plain version's autograd
+    bit for bit; ``plain_b`` (the plain version again) shows whether the
+    plain computation itself repeats."""
+    import torch
+
+    for nm, a, b, c in zip(names, fn_grads, plain_a, plain_b, strict=True):
+        repeat = torch.equal(b, c)
+        err = max_err(a, b) if a.shape == b.shape else float("inf")
+        log(f"train: {label}: d{nm} of the Function against the plain version's autograd: "
+            f"max abs err {err} ({'bit for bit' if torch.equal(a, b) else 'NOT bit for bit'}); "
+            f"the plain backward run twice {'repeats' if repeat else 'does NOT repeat'} "
+            f"(max abs {max_err(b, c)})")
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"{label}: the Function's d{nm} differs from the plain version's autograd")
+
+
+def hold_flash_backward(qkv, kw):
+    """Flash at the path's own (q, k, v): the Function's forward (the kernel)
+    against ``attention_ref``, and its backward against ``attention_ref``'s
+    autograd with the same upstream gradient, bit for bit (the same
+    computation). Returns the kernel's and the backward's device ms."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    leaves = [t.detach().clone().requires_grad_() for t in qkv]
+    o = flash_attention(*leaves, **kw)
+    g = torch.randn(o.shape, generator=torch.Generator(device="cuda").manual_seed(11),
+                    device="cuda").to(o.dtype)
+
+    def plain():
+        xs = [t.detach().clone().requires_grad_() for t in qkv]
+        ref = attention_ref(*xs, **kw)
+        return ref, torch.autograd.grad(ref, xs, g)
+
+    with _deterministic():
+        o.backward(g)
+        ref, a = plain()
+        _, b = plain()
+    o, ref = o.detach(), ref.detach()
+    atol, rtol = FLASH_TOL[str(o.dtype)]
+    rel = rel_l2(o, ref)
+    log(f"train: flash at layer 0's (q, k, v) {tuple(qkv[0].shape)} {o.dtype}: forward max abs "
+        f"err {max_err(o, ref)}, relative L2 {rel:.3e} (tolerances {(atol, rtol)}, "
+        f"{FLASH_BF16_REL_L2})")
+    check(torch.allclose(o.float(), ref.float(), atol=atol, rtol=rtol)
+          and rel <= FLASH_BF16_REL_L2, "train: flash forward differs from attention_ref")
+    _same_grads("flash", [t.grad for t in leaves], a, b, "qkv")
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: flash_attention_fwd(*qkv, **kw), 20)
+    bwd_ms = device_ms(lambda: plain(), 3)
+    return fwd_ms, bwd_ms
+
+
+def hold_ssd_forward(calls):
+    """The SSD kernel at every layer's own inputs (``calls``, one argument
+    list a layer) against ``ssd_chunked`` in f32 (``SSD_TOL``): the Function's
+    backward is ``ssd_ref``'s autograd by construction, so a kernel fault can
+    reach the gradients only through these forwards."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    worst, bad = [0.0, 0.0], []
+    for i, (x, dt, A_log, Bm, Cm, chunk) in enumerate(calls):
+        with torch.no_grad():
+            y, st = ssd_scan_fwd(x, dt, A_log, Bm, Cm, chunk)
+            yr, sr = ssd_chunked(x.float(), dt, A_log, Bm.float(), Cm.float(), chunk)
+        atol, rtol = SSD_TOL[str(x.dtype)]
+        if not (torch.allclose(y.float(), yr, atol=atol, rtol=rtol)
+                and torch.allclose(st, sr, atol=2e-4, rtol=1e-3)):
+            bad.append(i)
+        worst = [max(worst[0], max_err(y.float(), yr)), max(worst[1], max_err(st, sr))]
+    log(f"train: SSD forward at each of {len(calls)} layers' own inputs against ssd_chunked in "
+        f"f32: max abs err y {worst[0]}, state {worst[1]}")
+    check(not bad, f"train: SSD forward differs from ssd_chunked in layers {bad}")
+
+
+def hold_ssd_backward(args):
+    """The SSD scan at the path's own inputs, as ``hold_flash_backward``:
+    forward against ``ssd_chunked`` in f32 (``SSD_TOL``), backward over both
+    outputs against ``ssd_ref``'s autograd, bit for bit."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    *ins, chunk = args
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    y, st = ssd_scan(*leaves, chunk)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    gy = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+    gs = torch.randn(st.shape, generator=gen, device="cuda")
+
+    def plain():
+        xs = [t.detach().clone().requires_grad_() for t in ins]
+        out = ssd_ref(*xs, chunk)
+        return out, torch.autograd.grad(out, xs, (gy, gs))
+
+    with _deterministic():
+        torch.autograd.backward((y, st), (gy, gs))
+        _, a = plain()
+        _, b = plain()
+    y, st = y.detach(), st.detach()
+    x, dt, A_log, Bm, Cm = ins
+    yr, sr = ssd_chunked(x.float(), dt, A_log, Bm.float(), Cm.float(), chunk)
+    atol, rtol = SSD_TOL[str(x.dtype)]
+    log(f"train: SSD at layer 0's inputs x {tuple(x.shape)} {x.dtype}: forward max abs err y "
+        f"{max_err(y.float(), yr)}, state {max_err(st, sr)} against ssd_chunked in f32")
+    check(torch.allclose(y.float(), yr, atol=atol, rtol=rtol)
+          and torch.allclose(st, sr, atol=2e-4, rtol=1e-3), "train: SSD forward differs")
+    _same_grads("ssd_scan", [t.grad for t in leaves], a, b, ("x", "dt", "A_log", "Bm", "Cm"))
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: ssd_scan_fwd(*ins, chunk), 20)
+    bwd_ms = device_ms(lambda: plain(), 3)
+    return fwd_ms, bwd_ms
+
+
+def hold_router_forward(calls):
+    """The router kernel at every layer's own logits (``calls``) against
+    ``moe_route_ref``: expert ids, ordinals and keep flags bit for bit,
+    weights within ``MOE_W_ATOL``."""
+    from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
+    from repro_torch.kernels.moe_route.ref import moe_route_ref
+
+    worst = 0.0
+    for i, (logits, k, capacity, *_) in enumerate(calls):
+        got, ref = moe_route_fwd(logits, k, capacity), moe_route_ref(logits, k, capacity)
+        for a, b, nm in zip(got[1:], ref[1:], ("idx", "pos", "keep")):
+            exact(a, b, f"train: moe_route at layer {i}'s logits {tuple(logits.shape)} {nm}")
+        worst = max(worst, max_err(got[0], ref[0]))
+    log(f"train: moe_route at each of {len(calls)} layers' own logits "
+        f"{tuple(calls[0][0].shape)}, k {calls[0][1]}, capacity {calls[0][2]}: ids, ordinals "
+        f"and keep flags bit for bit with moe_route_ref, weights max abs err {worst}")
+    check(worst <= MOE_W_ATOL, f"train: moe_route weights max abs err {worst}")
+
+
+def hold_router_backward(args):
+    """The router at the path's own logits: the Function's ``d logits``
+    against the autograd of the plain weights ``softmax(logits).gather(1,
+    idx) / max(sum, 1e-9)`` at the kernel's experts, bit for bit."""
+    import torch
+
+    from repro_torch.kernels.moe_route import moe_route
+    from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
+    from repro_torch.kernels.moe_route.ops import route_weights
+
+    logits, k, capacity = args[:3]
+    leaf = logits.detach().clone().requires_grad_()
+    w, idx, _, _ = moe_route(leaf, k, capacity)
+    gw = torch.randn(w.shape, generator=torch.Generator(device="cuda").manual_seed(13),
+                     device="cuda")
+
+    def plain():
+        x = logits.detach().clone().requires_grad_()
+        return torch.autograd.grad(route_weights(x, idx), x, gw)
+
+    with _deterministic():
+        w.backward(gw)
+        a, b = plain(), plain()
+    _same_grads("moe_route", [leaf.grad], a, b, ["logits"])
+    with torch.no_grad():
+        fwd_ms = device_ms(lambda: moe_route_fwd(logits, k, capacity), 20)
+    bwd_ms = device_ms(lambda: plain(), 3)
+    return fwd_ms, bwd_ms
+
+
+def step_profile(what, fn):
+    """One call of ``fn`` (a train step) after a warm-up one, under
+    ``device_busy_ms`` (CUDA activity only: a step is some 10^4–10^5 host
+    ops, which CPU tracing would slow tenfold): host ms to the device's
+    end, the device's busy ms and idle share, the heaviest kernels logged."""
+    fn()
+    wall, busy = device_busy_ms(fn, what)
+    idle = None if busy is None else max(0.0, 1 - busy / wall)
+    log(f"where: {what}: {wall:.3f} ms to the device's end; device busy "
+        + (f"{busy:.3f} ms, idle share {idle:.3f}" if busy is not None else
+           "not measured (the profiler saw no device time)"))
+    return dict(wall_ms=wall, busy_ms=busy, idle=idle)
+
+
+def _grad_gap(label, g_kernel, g_plain, what="through the kernels"):
+    """Logs, not held, how far whole-model gradients ``what`` (by default
+    through the kernels) are from those through the plain versions (random
+    bf16 stacks are chaotic)."""
+    rels = sorted((rel_l2(g_kernel[k], g_plain[k]), k) for k in g_plain)
+    log(f"train: {label}: whole-model gradients {what} against the plain versions "
+        f"(reported, not held): relative L2 median {rels[len(rels) // 2][0]:.3e}, largest "
+        f"{rels[-1][0]:.3e} ({rels[-1][1]}) over {len(rels)} tensors")
+    return rels[-1][0]
+
+
+def train_run(label, cfg, B, S, steps, kernel, prepare=None):
+    """``cfg`` at full width (random bf16 weights from a seeded generator)
+    takes ``steps`` ``bundle.train_step``s on synthetic batches fed by
+    ``TrainPipeline`` (each device batch held against its host batch).
+    ``prepare(bundle, params, batch)``, run first, checks what needs the
+    initial weights and returns a report. Checks: ``kernel`` launched
+    layers x steps x 2 times (forward and remat's recompute), every loss
+    finite. Reports step ms, tokens/s, peak memory, and one step's device
+    busy time and idle share."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.data.pipeline import TrainPipeline
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    opt = bundle.init_opt(params)
+    n_params = sum(p.numel() for p in params.parameters())
+    it = synthetic_batches(cfg.vocab_size, B, S, 0)
+    host = [next(it) for _ in range(steps)]
+    first = {k: torch.as_tensor(v, device="cuda") for k, v in host[0].items()}
+    log(f"train: {label}: {cfg.name} ({cfg.source}) at full width, {cfg.num_layers} layers, "
+        f"{n_params} parameters in {cfg.param_dtype}, moments {cfg.opt_moment_dtype}, remat "
+        f"{cfg.remat}, attention {cfg.attn_impl}; B {B} x S {S}, {steps} steps; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    report = prepare(bundle, params, first) if prepare else {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    pipe = TrainPipeline(iter(host), device="cuda")
+    K.reset_launches()
+    losses, ms = [], []
+    for i, batch in enumerate(pipe):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = bundle.train_step(params, opt, batch)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for k, v in host[i].items():
+            check(torch.equal(batch[k].cpu(), torch.from_numpy(np.ascontiguousarray(v))),
+                  f"train: {label}: step {i + 1}'s {k} on the card differs from the host batch")
+    pipe.close()
+    fns = K.launch_counters()
+    launches = {k: fn.launches for k, fn in fns.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in fns}
+    if kernel:
+        want[kernel] = cfg.num_layers * steps * 2
+    check(launches == want, f"train: {label}: launches {launches}, expected {want}")
+    if kernel == "flash_attention":
+        check(fns[kernel].launches_by_variant == {"wgmma": want[kernel]},
+              f"train: {label}: flash routes {fns[kernel].launches_by_variant}")
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"train: {label}: losses {losses}")
+    step_ms = float(np.median(ms[1:]))
+    where = step_profile(f"{label} train step", lambda: bundle.train_step(params, opt, first))
+    log(f"train: {label}: losses {[round(x, 4) for x in losses]}; step ms {[round(x, 1) for x in ms]}"
+        f", median after the first {step_ms:.1f} ({B * S / step_ms * 1e3:.0f} tokens/s); peak "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; launches {launches}")
+    out = dict(report, steps=steps, losses=losses, step_ms=step_ms,
+               tokens_per_s=B * S / step_ms * 1e3, peak_gib=peak / 2**30, launches=launches,
+               busy_ms=where["busy_ms"], idle=where["idle"])
+    del params, opt, bundle, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_olmo():
+    """OLMo-1B, all 16 layers, bf16, ``remat="full"``, flash."""
+    import torch
+
+    import repro_torch.kernels.flash_attention as fpkg
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("olmo-1b").with_overrides(attn_impl="flash")
+    chunked = build_model(cfg.with_overrides(attn_impl="chunked"))
+
+    def prepare(bundle, params, batch):
+        seen = []
+        with torch.no_grad(), _swapped(fpkg, "flash_attention",
+                                       _recording(seen, fpkg.flash_attention)):
+            bundle.train_loss(params, batch)
+        kw = dict(zip(("causal", "window", "softcap", "q_offset"), seen[0][3:7]))
+        fwd_ms, bwd_ms = hold_flash_backward(seen[0][:3], kw)
+        lf, gf = bundle.value_and_grad(params, batch)
+        lc, gc_ = chunked.value_and_grad(params, batch)
+        rel = abs(float(lf) - float(lc)) / abs(float(lc))
+        log(f"train: olmo: step 1's loss through flash {float(lf):.6f}, through the chunked "
+            f"attention {float(lc):.6f} from the same weights: relative error {rel:.3e} "
+            f"(tolerance {TRAIN_LOSS_REL})")
+        check(rel <= TRAIN_LOSS_REL, f"train: olmo: flash and chunked losses differ by {rel}")
+        gap = _grad_gap("olmo", gf, gc_)
+        return dict(loss_rel=rel, grad_gap=gap, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                    first_loss=float(lf))
+
+    B, S, steps = TRAIN_RUNS["olmo"]
+    out = train_run("olmo", cfg, B, S, steps, "flash_attention", prepare)
+    check(abs(out["losses"][0] - out["first_loss"]) <= 1e-3 * abs(out["first_loss"]),
+          f"train: olmo: step 1's loss {out['losses'][0]} is not the loss checked before it "
+          f"{out['first_loss']}")
+    return out
+
+
+def _ssd_f32_control(x, dt, A_log, Bm, Cm, chunk):
+    """The plain SSD with one rounding changed: ``ssd_chunked`` on f32
+    copies of ``x``, ``Bm``, ``Cm``, ``y`` cast back to ``x``'s dtype. Its
+    whole-model gradients' distance from the plain path's is what roundings
+    alone move them."""
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    y, st = ssd_chunked(x.float(), dt, A_log, Bm.float(), Cm.float(), chunk)
+    return y.to(x.dtype), st
+
+
+def train_mamba():
+    """Mamba2-780M, all 48 layers, bf16, ``remat="full"``: the SSD scan.
+    Whole-model gradients through the kernel are reported against the plain
+    path's beside a control, the plain path with one rounding changed
+    (``_ssd_f32_control``); every layer's SSD forward is held."""
+    import torch
+
+    import repro_torch.kernels.ssd_scan as pkg
+    from repro_torch.configs import get_config
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    cfg = get_config("mamba2-780m")
+
+    def prepare(bundle, params, batch):
+        seen = []
+        with torch.no_grad(), _swapped(pkg, "ssd_scan",
+                                       _recording(seen, pkg.ssd_scan, cfg.num_layers)):
+            bundle.train_loss(params, batch)
+        hold_ssd_forward(seen)
+        fwd_ms, bwd_ms = hold_ssd_backward(seen[0][:6])
+        del seen
+        _, gk = bundle.value_and_grad(params, batch)
+        with _swapped(pkg, "ssd_scan", ssd_chunked):
+            _, gp = bundle.value_and_grad(params, batch)
+        gap = _grad_gap("mamba", gk, gp)
+        del gk
+        with _swapped(pkg, "ssd_scan", _ssd_f32_control):
+            _, gc_ = bundle.value_and_grad(params, batch)
+        control = _grad_gap("mamba", gc_, gp, "through the control (ssd_chunked on f32 "
+                            "copies, y cast back)")
+        return dict(grad_gap=gap, control_gap=control, fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+
+    B, S, steps = TRAIN_RUNS["mamba"]
+    return train_run("mamba", cfg, B, S, steps, "ssd_scan", prepare)
+
+
+def train_mixtral():
+    """Mixtral-8x7B at full width, ``MIXTRAL_TRAIN_LAYERS`` of its 32 layers:
+    the router in every layer's FFN (its attention is the config's chunked
+    one). The router's weights must carry gradient beyond the aux loss's:
+    the router tensors' gradient of the cross-entropy alone (the aux
+    coefficient at 0) is non-zero."""
+    import torch
+
+    import repro_torch.kernels.moe_route as pkg
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import lm_loss
+    from repro_torch.models.transformer import head_matrix, lm_forward
+
+    full = get_config("mixtral-8x7b")
+    cfg = full.with_overrides(num_layers=MIXTRAL_TRAIN_LAYERS)
+
+    def prepare(bundle, params, batch):
+        seen = []
+        with torch.no_grad(), _swapped(pkg, "moe_route",
+                                       _recording(seen, pkg.moe_route, cfg.num_layers)):
+            bundle.train_loss(params, batch)
+        hold_router_forward(seen)
+        fwd_ms, bwd_ms = hold_router_backward(seen[0])
+        routers = [lp.ffn.router for lp in params.layers]
+        g_full = torch.autograd.grad(bundle.train_loss(params, batch), routers)
+        h, _aux = lm_forward(params, batch["tokens"], cfg)
+        ce = lm_loss(h, head_matrix(params, cfg), batch["labels"], cfg.loss_chunk)
+        g_ce = torch.autograd.grad(ce, routers)
+        norms = [(float(a.norm()), float(b.norm())) for a, b in zip(g_ce, g_full)]
+        log(f"train: mixtral: router gradient norms per layer, cross-entropy alone (aux "
+            f"coefficient 0) against the whole loss: {norms}")
+        check(all(a > 0 for a, _ in norms), "train: mixtral: the router's weights carry no "
+              "gradient beyond the aux loss's")
+        return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, router_grad_norms=norms)
+
+    B, S, steps = TRAIN_RUNS["mixtral"]
+    return train_run("mixtral", cfg, B, S, steps, "moe_route", prepare)
+
+
+def _hybrid_example():
+    spec = importlib.util.spec_from_file_location(
+        "torch_hybrid_train", os.path.join(HERE, "examples", "torch_hybrid_train.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_hybrid():
+    """The paper's hybrid training app (``examples/torch_hybrid_train.py``):
+    the dataflow phase on a ``cuda`` worker, then ``launch.train.train`` of
+    ``ignis-100m`` on the corpus with checkpoints at the middle step and the
+    end; the checkpoint restores bit for bit; a second call with more steps
+    resumes from the latest step and its steps advance. No kernel runs on
+    this path (the config's chunked attention; the dataflow phase filters
+    and collects)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import repro_torch.launch.train as T
+    from repro_torch import kernels as K
+    from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.core import ICluster, IProperties, IWorker
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ex = _hybrid_example()
+    h = TRAIN_HYBRID
+    K.reset_launches()
+    w = IWorker(ICluster(IProperties({"ignis.device": "cuda"})), "python")
+    ids, n_docs, rows = ex.dataflow_phase(w, h["seq_len"])
+    log(f"train: hybrid: dataflow filter kept {len(ids)}/{n_docs} docs; packed "
+        f"{rows.shape[0]} rows of {rows.shape[1]}")
+    times, first_batch = [], []
+    real = T.make_train_step
+
+    def timed_step(*a, **kw):
+        step = real(*a, **kw)
+
+        def run(params, opt, ef, batch):
+            if not first_batch:
+                first_batch.append(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, opt, ef, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        with _swapped(T, "make_train_step", timed_step):
+            params, opt, losses = ex.train_phase("ignis-100m", h["steps"], h["batch"],
+                                                 h["seq_len"], ckpt, "cuda")
+        peak = torch.cuda.max_memory_allocated()
+        first, last = losses[0][1], losses[-1][1]
+        check(last < first, f"train: hybrid: loss {first} -> {last} did not fall")
+        steps_saved = sorted(int(d.split("_")[1]) for d in os.listdir(ckpt))
+        check(steps_saved == [h["steps"] // 2, h["steps"]],
+              f"train: hybrid: checkpoints at {steps_saved}")
+        saved = T.checkpoint_tree(params, opt)
+        back = restore(ckpt, h["steps"], T.checkpoint_tree(params, opt, lambda t: t.to("meta")),
+                       "cpu")
+        flat_a, flat_b = _flatten(saved), _flatten(back)
+        check(flat_a.keys() == flat_b.keys() and all(
+            flat_a[k].dtype == flat_b[k].dtype and torch.equal(flat_a[k], flat_b[k])
+            for k in flat_a), "train: hybrid: the restored tree differs from the saved one")
+        nbytes = sum(t.numel() * t.element_size() for t in flat_a.values())
+        t0 = time.perf_counter()
+        ck = AsyncCheckpointer(os.path.join(root, "timed"))
+        ck.save(1, T.checkpoint_tree(params, opt))
+        ck.wait()
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        T.restore_checkpoint(os.path.join(root, "timed"), 1, params, opt)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        _, _, losses2 = ex.train_phase("ignis-100m", h["more"], h["batch"], h["seq_len"], ckpt,
+                                       "cuda")
+        check(losses2 and losses2[0][0] > h["steps"] and losses2[-1][0] == h["more"]
+              and latest_step(ckpt) == h["more"],
+              f"train: hybrid: the resumed run logged steps {[s for s, _ in losses2]}, latest "
+              f"checkpoint {latest_step(ckpt)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fns = K.launch_counters()
+    launched = {k: fn.launches for k, fn in fns.items() if fn.launches}
+    check(not launched, f"train: hybrid: kernels launched on a kernel-free path: {launched}")
+    step_ms = float(np.median(times[1:]))
+    tokens = h["batch"] * h["seq_len"]
+    cfg = get_config("ignis-100m")
+    step = real(build_model(cfg), cfg)
+    where = step_profile("hybrid train step", lambda: step(params, opt, None, first_batch[0]))
+    log(f"train: hybrid: ignis-100m, {h['steps']} steps of {h['batch']} x {h['seq_len']}: loss "
+        f"{first:.4f} -> {last:.4f} (logged {losses}); step ms median after the first "
+        f"{step_ms:.2f} ({tokens / step_ms * 1e3:.0f} tokens/s); peak max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; checkpoint of {nbytes} B: save {save_ms:.1f} ms "
+        f"({nbytes / save_ms / 1e6:.3f} GB/s), restore {restore_ms:.1f} ms "
+        f"({nbytes / restore_ms / 1e6:.3f} GB/s); resumed to step {h['more']}: "
+        f"{losses2}; no kernel launched")
+    return dict(steps=h["steps"], losses=losses, step_ms=step_ms,
+                tokens_per_s=tokens / step_ms * 1e3, peak_gib=peak / 2**30,
+                save_ms=save_ms, restore_ms=restore_ms, ckpt_bytes=nbytes,
+                busy_ms=where["busy_ms"], idle=where["idle"])
+
+
+#: the train run that launches each model kernel
+TRAIN_KERNEL_RUN = {"flash_attention": "olmo", "ssd_scan": "mamba", "moe_route": "mixtral"}
+
+
+def train_phase():
+    """The training path at full width: the hybrid app, then OLMo-1B
+    (flash), Mamba2-780M (the SSD scan) and Mixtral-8x7B at
+    ``MIXTRAL_TRAIN_LAYERS`` layers (the router). Returns each run's report;
+    ``launches`` of each model run are its kernel's training launches."""
+    t0 = time.perf_counter()
+    out = {"hybrid": train_hybrid(), "olmo": train_olmo(), "mamba": train_mamba(),
+           "mixtral": train_mixtral()}
+    for label, r in out.items():
+        log(f"train: {label}: step {r['step_ms']:.2f} ms, {r['tokens_per_s']:.0f} tokens/s, "
+            f"peak {r['peak_gib']:.2f} GiB, one step's device busy {r['busy_ms']} ms, idle share "
+            f"{r['idle']}" + (f"; forward kernel {r['fwd_ms']} ms device against the plain "
+                              f"backward's {r['bwd_ms']} ms" if "fwd_ms" in r else ""))
+    log(f"train: phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def flash_row(launches, reps: int):
     """The flash kernel at the serve path's largest prefill shape, timed
     beside its bound, its plain version and torch's fused SDPA."""
@@ -3547,6 +4166,11 @@ def main() -> int:
         t0 = time.perf_counter()
         serve_phi(args)
         log(f"phi: serve phase took {time.perf_counter() - t0:.1f} s")
+        trained = train_phase()
+        for row in rows:
+            label = TRAIN_KERNEL_RUN.get(row["name"])
+            if label:
+                row["train_launches"] = trained[label]["launches"][row["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -87,10 +87,11 @@ def _check(q, k, v, q_offset, kv_len, window, softcap):
             and any(t.data_ptr() % 16 for t in (q, k, v))):
         raise ValueError("flash kernel (wgmma route): q, k, v must start on 16-byte "
                          "boundaries, as TMA reads them")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise NotImplementedError(
-            "the flash kernel has no backward yet: run it under torch.no_grad(); "
-            "its autograd.Function comes with the training path (ROADMAP)")
+            "flash_attention_fwd records no graph: call ops.flash_attention (the "
+            "differentiable entry, whose backward is attention_ref's) or run under "
+            "torch.no_grad()")
 
 
 @counted

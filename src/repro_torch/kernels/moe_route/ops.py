@@ -2,6 +2,12 @@
 the shuffle exchange's router (``bucket_route``: empty input), which
 reuses the MoE router's capacity-ordinal technique. The tensors' device
 picks kernel or plain version.
+
+``moe_route`` is differentiable in its weights, as the JAX ``route`` is
+through ``lax.top_k``'s values: its ``torch.autograd.Function`` returns the
+kernel's ``(w, idx, pos, keep)`` (``idx``, ``pos`` and ``keep`` are not
+differentiable), and its backward is the vjp of the plain weights
+``softmax(logits).gather(1, idx) / max(sum, 1e-9)`` at the chosen experts.
 """
 from __future__ import annotations
 
@@ -9,6 +15,30 @@ import torch
 
 from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
 from repro_torch.kernels.moe_route.route import bucket_route_fwd
+
+
+def route_weights(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The router's renormalised top-k weights at experts ``idx`` (T, k), as
+    a differentiable function of ``logits`` (T, E): the JAX ``route``."""
+    w = torch.softmax(logits.float(), dim=-1).gather(1, idx.long())
+    return w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+
+
+class _Route(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, k, capacity):
+        w, idx, pos, keep = moe_route_fwd(logits, k, capacity)
+        ctx.mark_non_differentiable(idx, pos, keep)
+        ctx.save_for_backward(logits, idx)
+        return w, idx, pos, keep
+
+    @staticmethod
+    def backward(ctx, gw, *_):
+        logits, idx = ctx.saved_tensors
+        logits = logits.detach().requires_grad_()
+        with torch.enable_grad():
+            w = route_weights(logits, idx)
+        return torch.autograd.grad(w, logits, gw)[0], None, None
 
 
 def moe_route(logits: torch.Tensor, k: int, capacity: int, block_t: int = 256):
@@ -22,9 +52,9 @@ def moe_route(logits: torch.Tensor, k: int, capacity: int, block_t: int = 256):
     if x.is_cuda:
         x = x.float().contiguous()
     if not pad:  # nothing to cut off: the kernel's outputs as they are
-        return moe_route_fwd(x, k, capacity)
+        return _Route.apply(x, k, capacity)
     x = torch.cat([x, x.new_full((pad, E), -1e9)])
-    w, idx, pos, keep = moe_route_fwd(x, k, capacity)
+    w, idx, pos, keep = _Route.apply(x, k, capacity)
     return w[:T], idx[:T], pos[:T], keep[:T]
 
 

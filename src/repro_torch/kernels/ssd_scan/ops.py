@@ -5,6 +5,13 @@ to a whole number of chunks with dt = 0 (decay 1, input 0: a state no-op),
 as ``ssd_chunked`` does. ``prefix_scan`` is the shuffle engine's prefix pass
 (the reference hosts it beside the SSD scan because its Pallas kernel reuses
 the SSD carry pattern). The tensors' device picks kernel or plain version.
+
+``ssd_scan`` is differentiable as the JAX wrapper is (a ``custom_vjp``):
+its ``torch.autograd.Function`` runs ``ssd_scan_fwd`` forward (the kernel
+on the card), which records no graph, and its backward is the vjp of
+``ssd_ref`` over ``(x, dt, A_log, Bm, Cm)`` from the saved inputs, for both
+outputs. The padding, the f32 casts of ``dt``/``A_log`` and the contiguous
+copies stay outside the Function, so the gradient flows through them.
 """
 from __future__ import annotations
 
@@ -12,14 +19,32 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.prefix import prefix_scan_fwd
+from repro_torch.kernels.ssd_scan.ref import ssd_ref
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
+
+
+class _SSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A_log, Bm, Cm, chunk):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A_log, Bm, Cm)
+        return ssd_scan_fwd(x, dt, A_log, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        inputs = tuple(t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            y, state = ssd_ref(*inputs, ctx.chunk)
+        outs = [(o, g) for o, g in ((y, gy), (state, gstate)) if g is not None]
+        grads = torch.autograd.grad([o for o, _ in outs], inputs, [g for _, g in outs],
+                                    allow_unused=True)
+        return (*grads, None)
 
 
 def ssd_scan(x, dt, A_log, Bm, Cm, chunk):
     """x: (B, S, H, P); dt: (B, S, H); A_log: (H,); Bm/Cm: (B, S, G, N).
-    Returns (y (B, S, H, P), final state (B, H, P, N) f32). There is no
-    backward yet: a CUDA call whose inputs require grad raises (ROADMAP:
-    the training path)."""
+    Returns (y (B, S, H, P), final state (B, H, P, N) f32)."""
     S = x.shape[1]
     pad = (-S) % chunk
     if pad:
@@ -30,7 +55,7 @@ def ssd_scan(x, dt, A_log, Bm, Cm, chunk):
     if x.is_cuda:
         x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
         dt, A_log = dt.float().contiguous(), A_log.float().contiguous()
-    y, state = ssd_scan_fwd(x, dt, A_log, Bm, Cm, chunk)
+    y, state = _SSD.apply(x, dt, A_log, Bm, Cm, chunk)
     return y[:, :S], state
 
 

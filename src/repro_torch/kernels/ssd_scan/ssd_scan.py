@@ -53,8 +53,8 @@ def _check(x, dt, A_log, Bm, Cm, chunk):
                          f"chunk {chunk}, S {S} (ops.ssd_scan pads S)")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A_log, Bm, Cm)):
         raise NotImplementedError(
-            "the ssd_scan kernel has no backward yet: run it under torch.no_grad(); "
-            "its autograd.Function comes with the training path (ROADMAP)")
+            "ssd_scan_fwd records no graph: call ops.ssd_scan (the differentiable "
+            "entry, whose backward is ssd_ref's) or run under torch.no_grad()")
 
 
 def work_flops(x_shape, bn_shape, chunk) -> int:

@@ -1,4 +1,4 @@
-"""The model zoo on torch: the dense transformer family's serving path
-(ROADMAP lists what is still to port: the training path, the other
-families, ``moe_ep``)."""
+"""The model zoo on torch: the dense, MoE and SSM families' serving and
+training paths (ROADMAP lists what is still to port: the other families,
+``moe_ep``, the dry run's input specs)."""
 from repro_torch.models.model_zoo import ModelBundle, build_model  # noqa: F401

@@ -3,8 +3,10 @@ qk-norm, logit soft-cap, prefill + decode paths (the port of
 ``repro.models.attention``).
 
 The chunked path here is the plain one; ``cfg.attn_impl == "flash"``
-dispatches prefill to the flash kernel (``repro_torch.kernels.
-flash_attention``: CUDA on the card, its plain version on the CPU).
+dispatches prefill and the training forward to the flash kernel
+(``repro_torch.kernels.flash_attention``: CUDA on the card, its plain
+version on the CPU; differentiable through its ``autograd.Function``,
+whose backward is the plain version's, as in the JAX package).
 Cross-attention (the JAX function's ``kv=`` argument) comes with the
 encoder-decoder family (ROADMAP: the other families).
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import rmsnorm, rope, softcap, weight
 
@@ -63,7 +66,8 @@ def attend(q, k, v, pos_q, pos_kv, *, window=GLOBAL_WINDOW, causal=True, cap=0.0
     q: (B, Sq, H, hd); k, v: (B, Skv, K, hd); H = K·G.
     pos_q: (B, Sq) int32; pos_kv: (B, Skv) int32 (negative = invalid slot).
     ``chunk`` > 0 processes queries in blocks of ``chunk`` rows (a loop), so
-    the full (Sq, Skv) score matrix is never held.
+    the full (Sq, Skv) score matrix is never held, in the forward nor,
+    under grad, between the forward and the backward.
     """
     B, Sq, H, hd = q.shape
     K = k.shape[2]
@@ -71,10 +75,22 @@ def attend(q, k, v, pos_q, pos_kv, *, window=GLOBAL_WINDOW, causal=True, cap=0.0
     scale = hd**-0.5
     qg = q.reshape(B, Sq, K, G, hd)
     step = chunk if chunk and Sq > chunk else Sq
-    outs = [_attend_block(qg[:, i:i + step], k, v,
-                          _mask_bias(pos_q[:, i:i + step], pos_kv, window, causal),
-                          scale, cap)
-            for i in range(0, Sq, step)]
+    # under grad, each whole chunk is recomputed in the backward instead of
+    # keeping its probabilities (the JAX function's ``@jax.checkpoint`` on
+    # the ``lax.map`` body); a single block and the remainder are not
+    remat = step < Sq and torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+
+    def block(qb, pb):
+        return _attend_block(qb, k, v, _mask_bias(pb, pos_kv, window, causal), scale, cap)
+
+    outs = []
+    for i in range(0, Sq, step):
+        qb, pb = qg[:, i:i + step], pos_q[:, i:i + step]
+        if remat and i + step <= Sq:
+            outs.append(checkpoint(block, qb, pb, use_reentrant=False))
+        else:
+            outs.append(block(qb, pb))
     o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return o.reshape(B, Sq, H, hd)
 
@@ -88,7 +104,7 @@ def _promote(o, w):
 
 def attention(x, p, cfg, pos, *, window=GLOBAL_WINDOW, causal=True, pos_kv=None,
               static_window=True):
-    """Full attention sub-layer for prefill.
+    """Full attention sub-layer for prefill and training.
 
     x: (B, S, D). Returns (out, (k_heads, v_heads)) — the per-head K/V for
     cache writes.

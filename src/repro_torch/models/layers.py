@@ -1,6 +1,6 @@
-"""Shared building blocks: norms, RoPE, the SwiGLU MLP, initialisers
-(the port of ``repro.models.layers``; the loss functions come with the
-training path, ROADMAP).
+"""Shared building blocks: norms, RoPE, the SwiGLU MLP, initialisers and
+the sequence-chunked cross-entropy of the training path (the port of
+``repro.models.layers``).
 
 Parameters live in ``nn.Module``s (the JAX package's ``make_*_params``
 functions become their constructors) whose tensors keep the JAX package's
@@ -139,6 +139,53 @@ def mlp(x, p):
     g = F.silu(x @ p.w_gate)
     u = x @ p.w_up
     return (g * u) @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# LM head / loss
+# ---------------------------------------------------------------------------
+
+
+def lm_logits(h, head):
+    """h: (B, S, D); head: (D, V) (already transposed if tied)."""
+    return h @ head
+
+
+def _ce_block(logits, labels):
+    """f32 cross-entropy; labels < 0 are masked out. Returns (sum, count)."""
+    logits = logits.float()
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ce = (lse - gold) * mask
+    return ce.sum(), mask.sum()
+
+
+def lm_loss(h, head, labels, chunk=0):
+    """Cross-entropy over the vocabulary.
+
+    ``chunk`` > 0 computes logits in sequence chunks of ``chunk`` positions
+    (a loop, where the JAX function has ``lax.map``), so the forward never
+    holds the whole (B, S, V) tensor at once (needed for 262k
+    vocabularies); the remainder past the last whole chunk is one more
+    block, as in the JAX function."""
+    if not chunk or h.shape[1] <= chunk:
+        s, c = _ce_block(lm_logits(h, head), labels)
+        return s / torch.clamp_min(c, 1)
+    S = h.shape[1]
+    n = S // chunk
+    sums, counts = [], []
+    for i in range(n):
+        s, c = _ce_block(lm_logits(h[:, i * chunk:(i + 1) * chunk], head),
+                         labels[:, i * chunk:(i + 1) * chunk])
+        sums.append(s)
+        counts.append(c)
+    total, count = torch.stack(sums).sum(), torch.stack(counts).sum()
+    if n * chunk < S:
+        s, c = _ce_block(lm_logits(h[:, n * chunk:], head), labels[:, n * chunk:])
+        total, count = total + s, count + c
+    return total / torch.clamp_min(count, 1)
 
 
 def softcap(x, cap):

@@ -10,7 +10,8 @@ It rounds to the input dtype at the points the JAX function does.
 The one deliberate difference from the JAX package: ``mamba_mixer`` calls
 the kernel's wrapper ``ssd_scan`` where the JAX function calls
 ``ssd_chunked`` directly. On a CPU tensor that wrapper runs ``ssd_chunked``
-itself; on a CUDA tensor it launches the kernel.
+itself; on a CUDA tensor it launches the kernel. Under grad its backward is
+``ssd_chunked``'s own, so the gradients are the JAX function's.
 
 Decode is the O(1) recurrent update: h ← exp(Δ·A)·h + Δ·B⊗x ; y = C·h + D·x.
 """

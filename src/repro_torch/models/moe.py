@@ -6,6 +6,9 @@ ordinals come from the router kernel (``repro_torch.kernels.moe_route``:
 CUDA on the card, its plain version on the CPU), where the JAX function
 computes them with ``lax.top_k`` and a stable argsort; both give each
 assignment its rank within its expert in token-major, slot-minor order.
+Under grad the router's weights differentiate as the JAX function's do
+through ``lax.top_k``'s values: the kernel's ``autograd.Function`` takes
+the vjp of the plain renormalised softmax at the chosen experts.
 Tokens are then packed into an (E, capacity, D) buffer with capacity
 dropping, run through batched per-expert SwiGLU products, and scattered back
 with their router weights. The load-balancing auxiliary loss follows
@@ -46,7 +49,8 @@ def capacity_for(cfg, tokens: int) -> int:
 
 def route(x, router, k, capacity):
     """Router: returns (weights (T,k) f32, expert ids (T,k) i32, ordinals
-    (T,k) i32, keep (T,k) bool, logits (T,E) f32)."""
+    (T,k) i32, keep (T,k) bool, logits (T,E) f32); the weights and logits
+    carry the gradient to ``x`` and ``router``."""
     from repro_torch.kernels.moe_route import moe_route
 
     logits = x.float() @ router

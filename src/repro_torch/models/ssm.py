@@ -1,10 +1,11 @@
 """Attention-free SSM LM (mamba2-780m): embed → N × (norm + mamba2 mixer) →
-head (the port of ``repro.models.ssm``, serving surface).
+head (the port of ``repro.models.ssm``).
 
 Decode state is O(1): per-layer (conv_tail, ssm_state) — no KV cache. The
 JAX package scans the stacked layers; here they are an ``nn.ModuleList``
-and the scan is a loop. Prefill and decode run under ``torch.no_grad()``:
-this is the serving path. Training comes with the training path (ROADMAP).
+and the scan is a loop. ``ssm_forward``/``ssm_train_loss`` are the
+training path (differentiable, each layer under ``_remat``); prefill and
+decode run under ``torch.no_grad()``: the serving path.
 """
 from __future__ import annotations
 
@@ -12,8 +13,8 @@ import torch
 from torch import nn
 
 from repro_torch.models import mamba2
-from repro_torch.models.layers import Norm, apply_norm, embed_init, weight
-from repro_torch.models.transformer import _dtype, head_matrix
+from repro_torch.models.layers import Norm, apply_norm, embed_init, lm_loss, weight
+from repro_torch.models.transformer import _dtype, _remat, head_matrix
 
 
 class SSMLayer(nn.Module):
@@ -51,6 +52,25 @@ class SSMLM(nn.Module):
 def make_ssm_params(generator: torch.Generator, cfg) -> SSMLM:
     """Random weights drawn from ``generator``, on its device."""
     return SSMLM(cfg, generator=generator)
+
+
+def ssm_forward(params, tokens, cfg):
+    """tokens: (B, S) → h (B, S, D), differentiable."""
+    x = params.embed[tokens.long()]
+
+    def layer(x, lp):
+        y, _tail, _st = mamba2.mamba_mixer(apply_norm(x, lp.ln, cfg.norm_type), lp.mixer, cfg)
+        return x + y
+
+    step = _remat(layer, cfg)
+    for lp in params.layers:
+        x = step(x, lp)
+    return apply_norm(x, params.final_norm, cfg.norm_type)
+
+
+def ssm_train_loss(params, batch, cfg):
+    h = ssm_forward(params, batch["tokens"], cfg)
+    return lm_loss(h, head_matrix(params, cfg), batch["labels"], cfg.loss_chunk)
 
 
 def make_ssm_cache(cfg, batch, dtype=torch.bfloat16, device="cuda"):

@@ -1,22 +1,29 @@
 """Decoder-only transformer LM, dense or MoE (the port of
-``repro.models.transformer``, serving surface): GQA (+qk-norm), RoPE,
-sliding-window and local:global window patterns, logit soft-caps, MoE every
-layer (mixtral).
+``repro.models.transformer``): GQA (+qk-norm), RoPE, sliding-window and
+local:global window patterns, logit soft-caps, MoE every layer (mixtral).
 
 The JAX package stacks layers on a leading axis and runs them with
 ``lax.scan``; here the layers are an ``nn.ModuleList`` and the scan is a
 loop over it. The VLM patch prefix comes with its family (ROADMAP: the
-other families).
-Prefill and decode run under ``torch.no_grad()``: this is the serving path.
+other families). ``lm_forward``/``lm_train_loss`` are the training path
+(differentiable, each layer under ``_remat``'s checkpoint policy);
+prefill and decode run under ``torch.no_grad()``: the serving path.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import MLP, Norm, apply_norm, embed_init, mlp, weight
+from repro_torch.models.layers import MLP, Norm, apply_norm, embed_init, lm_loss, mlp, weight
 from repro_torch.models.moe import MoE, moe_apply
 
 _TODO = "is not ported yet (ROADMAP: the other families of the model zoo)"
@@ -98,6 +105,79 @@ def embed_tokens(params, tokens, cfg, patches=None):
     if patches is not None:
         raise NotImplementedError(f"the VLM patch prefix {_TODO}")
     return params.embed[tokens.long()]
+
+
+#: the products ``remat="dots"`` keeps: matmuls without batch dimensions
+#: (``x @ w`` of a weight), as ``dots_with_no_batch_dims_saveable`` keeps
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(f, cfg):
+    """``f`` under the config's checkpoint policy when a graph is recorded:
+    ``full`` recomputes the whole layer in the backward (``jax.checkpoint``),
+    ``dots`` keeps the weight products and recomputes the rest (the JAX
+    ``dots_with_no_batch_dims_saveable`` policy), ``none`` keeps it all."""
+    if cfg.remat == "none":
+        return f
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _save_dots)
+    elif cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r}")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return f(*args)
+        return checkpoint(f, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
+# ---------------------------------------------------------------------------
+# forward (train)
+# ---------------------------------------------------------------------------
+
+
+def lm_forward(params, tokens, cfg, patches=None):
+    """tokens: (B, S) → (h (B, S, D), aux_loss), differentiable. Flash stays
+    eligible by ``lm_prefill``'s rule: every layer has one window."""
+    x = embed_tokens(params, tokens, cfg, patches)
+    B, S, _ = x.shape
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    warr = layer_windows(cfg)
+    static = bool((warr == warr[0]).all())
+
+    def layer(x, aux, lp, window):
+        a, _ = attn.attention(apply_norm(x, lp.ln1, cfg.norm_type), lp.attn, cfg, pos,
+                              window=window, static_window=static)
+        x = x + a
+        h = apply_norm(x, lp.ln2, cfg.norm_type)
+        if cfg.is_moe:
+            m, a_loss = moe_apply(h, lp.ffn, cfg)
+            aux = aux + a_loss
+        else:
+            m = mlp(h, lp.ffn)
+        return x + m, aux
+
+    step = _remat(layer, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, window in zip(params.layers, warr.tolist()):
+        x, aux = step(x, aux, lp, window)
+    return apply_norm(x, params.final_norm, cfg.norm_type), aux
+
+
+def lm_train_loss(params, batch, cfg):
+    """The mean next-token cross-entropy of ``batch`` (``tokens``,
+    ``labels``; labels below 0 are masked) plus 0.01 x the MoE aux loss."""
+    h, aux = lm_forward(params, batch["tokens"], cfg, batch.get("patches"))
+    loss = lm_loss(h, head_matrix(params, cfg), batch["labels"], cfg.loss_chunk)
+    return loss + 0.01 * aux
 
 
 @torch.no_grad()

@@ -372,12 +372,16 @@ def test_chip_smoke_host_sha256_is_hashlibs(smoke):
     smoke._anchor_sha_to_hashlib()  # raises SmokeFailure on a mismatch
 
 
-@pytest.mark.parametrize("example", ["torch_native_hpc_app.py", "torch_transitive_closure.py"])
+@pytest.mark.parametrize("example", [
+    "torch_native_hpc_app.py", "torch_transitive_closure.py",
+    # the hybrid training app at ignis-tiny, shortened: its loss must fall
+    "torch_hybrid_train.py --steps 20 --batch 4 --seq-len 64"])
 def test_torch_examples_run_on_the_cpu(example):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(HERE, "..", "src")
-    r = subprocess.run([sys.executable, os.path.join(HERE, "..", "examples", example),
-                        "--device", "cpu"], env=env, capture_output=True, text=True,
+    script, *extra = example.split()
+    r = subprocess.run([sys.executable, os.path.join(HERE, "..", "examples", script),
+                        "--device", "cpu", *extra], env=env, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().splitlines()[-1] == "OK"

@@ -9,8 +9,8 @@ Each pump case runs on both packages and compares states and stats; at
 p = 1 in this process, and at p = 8 (4 tenants on ``worker.groups(4)``, the
 front end growing the world on admission) against the JAX package in a
 subprocess (tests/_torch_recovery_main.py). ``IteratorSource`` is fed a
-plain generator: the reference test that feeds it the data pipeline's rows
-waits for the port of ``data/``.
+plain generator and, as in the reference's tests, the data pipeline's
+packed rows.
 """
 import os
 import sys
@@ -120,6 +120,28 @@ def test_iterator_source_replays_by_reconstruction_as_the_reference():
         (ra, oa), (rb, ob) = ts.poll(off, n), js.poll(off, n)
         assert oa == ob and ((ra is None and rb is None) or np.array_equal(ra, rb))
     assert len(tcalls) == len(jcalls) == 3
+
+
+def test_iterator_source_over_the_pipelines_rows_as_the_reference():
+    """tests/test_streaming.py's case on the port: the data pipeline's packed
+    rows are a valid stream source with deterministic replay, and the rows
+    the port polls are the reference's."""
+    from repro.data.pipeline import byte_tokenize as j_tok
+    from repro.data.pipeline import pack_sequences as j_pack
+    from repro_torch.data.pipeline import byte_tokenize, pack_sequences
+
+    def make(mod, tok, pack):
+        docs = [tok(f"document-{i}" * 3) for i in range(6)]
+        return mod.IteratorSource(lambda: iter([pack([d], seq_len=8) for d in docs]))
+
+    ts, js = make(TS, byte_tokenize, pack_sequences), make(JS, j_tok, j_pack)
+    first, off = ts.poll(0, 5)
+    assert first.shape[1] == 9
+    again, _ = ts.poll(0, 5)
+    assert (again == first).all()
+    for o, n in ((0, 5), (5, 3), (0, 5), (8, 100)):
+        (ra, oa), (rb, ob) = ts.poll(o, n), js.poll(o, n)
+        assert oa == ob and ((ra is None and rb is None) or np.array_equal(ra, rb))
 
 
 # ---------------------------------------------------------------------------
