@@ -7,8 +7,10 @@ profile package on its frames), the paper's evaluation apps in ignis and
 spark mode, the recovery tier (checkpoints, chaos, the elastic mesh,
 streaming ingestion), then seven models of three families served through
 ``ServeFrontDoor`` (Qwen3-14B, Mamba2-780M, Mixtral-8x7B, OLMo-1B, Yi-9B,
-Gemma3-4B, Phi-3.5-MoE), then the training path (the paper's hybrid
-training app, and OLMo-1B, Mamba2-780M and Mixtral-8x7B at full width) —
+Gemma3-4B, Phi-3.5-MoE), then the other three families (Jamba-1.5-Large,
+InternVL2-1B, Whisper-tiny), then the training path (the paper's hybrid
+training app, and OLMo-1B, Mamba2-780M, Mixtral-8x7B, InternVL2-1B,
+Whisper-tiny and Jamba's gradient at full width) —
 holds every hand-written kernel against its plain torch version at the
 shapes those paths gave it, and reports. Run from the repository root:
 
@@ -169,7 +171,29 @@ non-zero):
              which this run does not measure); the router at the largest
              prefill and at a decode tick (T = 4), by device time
              (``torch.profiler``) and the wrapper's host µs per call;
-7. train   — after the serve phases' memory is released: the paper's
+7. jamba,  — after Phi's memory is released, the other families
+   internvl, (``FAMILY_PHASES``), random bf16 weights, flash in every
+   whisper   prefill: Jamba-1.5-Large at full width, one block of 8 layers
+             with 8 of its 16 experts a MoE slot (``JAMBA_LAYERS``,
+             ``JAMBA_EXPERTS``), through the engine on the shared traffic
+             (flash at the attention slot, G = 8, no RoPE; the SSD scan at
+             its 7 mixers, 256 heads; the router at its 4 MoE slots in
+             prefill and decode), every admission's splice checked bit for
+             bit (the slot equal to the request's own cache, the others
+             unchanged: the mixers' state has its batch on axis 2), each
+             kernel held at its own inputs in a prefill; InternVL2-1B whole,
+             text-only through the engine (the engine feeds token prompts),
+             then one batch of 4 x (256 patches + 1024 tokens) through
+             ``bundle.prefill(patches=)`` and 32 decode steps; Whisper-tiny
+             whole through the bundle (2 batches of 4 clips of 1500 frames,
+             256-token prompts, 32 decode steps; 12 flash calls a prefill —
+             encoder, decoder self, cross against 1500 keys — and none in
+             decode), each kind of flash call held at its first layer's
+             inputs. Checks: launches, routes, finite logits, prefill logits
+             against the chunked attention's (``SERVE_REL_L2``; Jamba's with
+             the router's plain version, ``MOE_REL_L2``). Reports the serve
+             cells' figures and each phase's seconds;
+8. train   — after the serve phases' memory is released: the paper's
              hybrid training app (``examples/torch_hybrid_train.py``'s
              dataflow phase on a ``cuda`` worker, then ``launch.train`` of
              ``ignis-100m`` on the packed corpus, ``TRAIN_HYBRID``): the
@@ -182,19 +206,27 @@ non-zero):
              Mixtral-8x7B at ``MIXTRAL_TRAIN_LAYERS`` of its 32 layers (the
              router), random bf16 weights, batches fed by
              ``TrainPipeline`` (each device batch held against its host
-             batch). Checks: the path's kernel launched layers x steps x 2
-             times (forward and remat's recompute) and no other, every
-             loss finite, each kernel's ``autograd.Function`` at layer 0's
-             own inputs: forward against the plain version, backward equal
-             to the plain version's autograd bit for bit; OLMo's first
-             loss against the chunked attention's (``TRAIN_LOSS_REL``);
-             Mixtral's router gradient non-zero with the aux loss left
-             out. Reports step ms, tokens/s, peak memory, one step's
+             batch). Then InternVL2-1B (``INTERNVL_TRAIN``: 256 patches +
+             1792 tokens, flash over S = 2048), Whisper-tiny
+             (``WHISPER_TRAIN``: 1500 frames + 448 tokens, 12 flash calls a
+             forward) and Jamba's ``value_and_grad`` at full width (one
+             block, 4 experts, 1 x 2048, no optimizer step: no full-width
+             cut takes an Adam step on one card; the peak reckoned first,
+             ``jamba_grad_peak_gib``). Checks: the path's kernels launched
+             layers (calls) x steps x 2 times (forward and remat's
+             recompute) and no other, every loss (and Jamba's gradient)
+             finite, each kernel's ``autograd.Function`` at its first own
+             inputs (Whisper: the cross-attention): forward against the
+             plain version, backward equal to the plain version's autograd
+             bit for bit; OLMo's first loss against the chunked attention's
+             (``TRAIN_LOSS_REL``); Mixtral's router gradient non-zero with
+             the aux loss left out. Reports step ms, tokens/s, peak memory, one step's
              device busy time and idle share, whole-model gradients through
              the kernels against the plain versions (not held: random bf16
              stacks are chaotic), each kernel's forward device ms against
              its plain backward's, and checkpoint save and restore ms; the
-             kernels line gains each model kernel's ``train_launches``.
+             kernels line gains each model kernel's ``train_launches`` and
+             ``family_launches`` (the phases of 7 and their train runs).
 
 The last two lines are the ``kernels`` JSON object (with the card's name and
 power limit just before it) and ``{"ok": true, "device": {...}}``.
@@ -2961,7 +2993,17 @@ def where_time(what, fn, reps=4):
             f"launches of {e.key[:90]}")
 
 
-def serve_phase(args, label, cfg, expect, compare, rel_tol, note=""):
+def serve_prompts(seed, vocab_size):
+    """The shared serve traffic: ``SERVE_REQUESTS`` prompts of 512–2048
+    tokens drawn from ``seed``, as (lengths, int32 prompts)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(512, 2049, SERVE_REQUESTS)
+    return lens, [rng.integers(0, vocab_size, int(n)).astype(np.int32) for n in lens]
+
+
+def serve_phase(args, label, cfg, expect, compare, rel_tol, note="", extra=None):
     """``cfg`` at full width (random weights from a seeded generator) serves
     8 requests of 512–2048 prompt tokens x 32 new tokens through
     ``ServeFrontDoor`` on a cuda worker: continuous batching on 4 slots of a
@@ -2971,8 +3013,9 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note=""):
     must make in the run; ``compare(bundle, params, tokens)`` gives the
     last-position logits of a prefill through the path's kernels and through
     their plain versions, held within relative L2 ``rel_tol`` of each other
-    on two of the prompts. Returns ({kernel: (launches, sweep launches,
-    geometries)}, report)."""
+    on two of the prompts. ``extra(bundle, params)``, when given, runs last
+    on the same weights and returns a dict merged into the report. Returns
+    ({kernel: (launches, sweep launches, geometries)}, report)."""
     import dataclasses
     import gc
 
@@ -3008,9 +3051,7 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note=""):
     engine.bundle = dataclasses.replace(bundle, prefill=prefill, decode_step=decode)
     job = IJob(label)
     fd = ServeFrontDoor(engine, w, job=job)
-    rng = np.random.default_rng(args.seed)
-    lens = rng.integers(512, 2049, SERVE_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32) for n in lens]
+    lens, prompts = serve_prompts(args.seed, cfg.vocab_size)
 
     K.reset_launches()
     t0 = time.perf_counter()
@@ -3072,6 +3113,8 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note=""):
         check(rel <= rel_tol, f"{label}: kernel and plain prefill logits differ: rel L2 {rel}")
     report = dict(prefill_ms=prefill.ms, decode_ms=decode.ms, wall_ms=wall * 1e3,
                   tokens_per_s=gen / wall, peak_gib=peak / 2**30)
+    if extra:
+        report.update(extra(bundle, params))
     del params, engine, fd, bundle
     gc.collect()
     torch.cuda.empty_cache()
@@ -3345,6 +3388,414 @@ def serve_moe(args, label, name, layers, why):
 
 
 # ---------------------------------------------------------------------------
+# the other families: Jamba (hybrid), InternVL2 (VLM), Whisper (audio)
+# ---------------------------------------------------------------------------
+
+#: Jamba-1.5-Large at full width: one block of its nine (``JAMBA_LAYERS`` of
+#: 72 layers) with ``JAMBA_EXPERTS`` of its 16 experts in each MoE slot,
+#: top-2 kept (the JAX ``analytic_param_count``): one block with all 16 is
+#: 45.14e9 parameters, 84.1 GiB in bf16, above the card's 80 GB; with 12,
+#: 66.1 GiB, no room left to draw the weights and prefill; with 8, 25.82e9
+#: (48.1 GiB)
+JAMBA_LAYERS = 8
+JAMBA_EXPERTS = 8
+#: the batch of InternVL2's patch prefix outside the engine: batch, patches
+#: (of width ``VIT_DIM``), text tokens; then ``SERVE_NEW`` decode steps
+INTERNVL_PATCH_BATCH = (4, 256, 1024)
+#: Whisper's serve cell: batches of clips, clips a batch (``enc_seq`` frames
+#: each, the decoder prompt ``WHISPER_PREFILL_DEC`` tokens), then
+#: ``SERVE_NEW`` decode steps
+WHISPER_BATCHES, WHISPER_CLIPS = 2, 4
+#: the decoder rows of each kind of flash call in Whisper's prefill, by its
+#: index among a prefill's calls: the first encoder layer, then the first
+#: decoder layer's self- and cross-attention (``enc_layers`` + 0, + 1)
+WHISPER_FLASH_KINDS = ("encoder", "decoder self", "decoder cross")
+
+
+def _flash_holder(label, worst):
+    """The package's flash wrapper, each call held against ``attention_ref``
+    at its own inputs (``FLASH_TOL`` elementwise, ``FLASH_BF16_REL_L2``);
+    ``worst`` gathers the largest errors and the failing calls."""
+    import torch
+
+    import repro_torch.kernels.flash_attention as fpkg
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    kernel = fpkg.flash_attention
+
+    def checked(q, k, v, causal=True, window=None, softcap=0.0, q_offset=0, **kw):
+        o = kernel(q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+                   **kw)
+        ref = attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                            q_offset=q_offset)
+        atol, rtol = FLASH_TOL[str(q.dtype)]
+        rel = rel_l2(o, ref)
+        if not (torch.allclose(o.float(), ref.float(), atol=atol, rtol=rtol)
+                and rel <= FLASH_BF16_REL_L2 and not torch.isnan(o).any()):
+            worst["bad"].append(worst["n"])
+        worst["abs"] = max(worst["abs"], max_err(o, ref))
+        worst["rel"] = max(worst["rel"], rel)
+        worst["n"] += 1
+        worst.setdefault("shapes", set()).add((tuple(q.shape), tuple(k.shape), bool(causal),
+                                               int(q_offset)))
+        return o
+    return checked
+
+
+def _jamba_splice_check(real, seen):
+    """The engine's ``_splice`` (``real``), then a check that the slab's rows
+    of the admitted slot equal the request's own prefill cache bit for bit
+    (k/v for its Lp rows and zeros past them, the mixers' conv tails and
+    states, pos) and that every other slot is unchanged; ``seen`` gets one
+    verdict an admission."""
+    import torch
+
+    axes = {"k": 1, "v": 1, "conv": 2, "state": 2, "pos": 0}
+
+    def spliced(cache, cache1, slot, cache_len):
+        before = {k: cache[k].clone() for k in axes}
+        out = real(cache, cache1, slot, cache_len)
+        ok = set(cache) == set(axes)
+        for k, a in axes.items():
+            got, want = cache[k].select(a, slot), cache1[k].select(a, 0).to(cache[k].dtype)
+            if k in ("k", "v"):  # the length axis is now axis a
+                lp = want.shape[a]
+                ok = ok and torch.equal(got.narrow(a, 0, lp), want) \
+                    and not got.narrow(a, lp, cache_len - lp).any()
+            else:
+                ok = ok and torch.equal(got, want)
+            ok = ok and all(torch.equal(cache[k].select(a, s), before[k].select(a, s))
+                            for s in range(cache[k].shape[a]) if s != slot)
+        seen.append(ok)
+        return out
+    return spliced
+
+
+def serve_jamba(args):
+    """Jamba-1.5-Large at full width, ``JAMBA_LAYERS`` of its 72 layers with
+    ``JAMBA_EXPERTS`` experts a MoE slot: the attention slot of every
+    prefill through flash (no RoPE, G = 8), its 7 mixers through the SSD
+    scan (256 heads), its 4 MoE slots (1, 3, 5, 7) through the router in
+    every prefill and decode step. Each admission's splice is checked
+    (``_jamba_splice_check``) in a second, untimed engine run of the same
+    traffic. A prefill holds flash at the attention slot
+    against ``attention_ref``, the SSD at each mixer against
+    ``ssd_chunked`` in f32 (``SSD_TOL``) and the router at each MoE slot
+    against ``moe_route_ref`` (ids, ordinals and keep flags bit for bit,
+    weights within ``MOE_W_ATOL``), each at its own inputs; its logits are
+    held against the same prefill with the router's plain version
+    (``MOE_REL_L2``: the router alone). The logits against the all-plain
+    prefill (``attention_ref``, ``ssd_chunked``, ``moe_route_ref``) are
+    reported, not held: random bf16 stacks with top-2 routing are chaotic.
+    Returns ({kernel: launches in the engine's run}, report)."""
+    import torch
+
+    import repro_torch.kernels.flash_attention as fpkg
+    import repro_torch.kernels.moe_route as mpkg
+    import repro_torch.kernels.ssd_scan as spkg
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.moe_route.ref import moe_route_ref
+    from repro_torch.models.mamba2 import ssd_chunked
+    from repro_torch.serving import Request, ServeEngine
+
+    full = get_config("jamba-1.5-large-398b")
+    cfg = full.with_overrides(num_layers=JAMBA_LAYERS, num_experts=JAMBA_EXPERTS,
+                              attn_impl="flash")
+    n_mixers, n_moe = 7, 4
+    ssd_kernel, route_kernel = spkg.ssd_scan, mpkg.moe_route
+
+    def plain_route(logits, k, capacity, *a):
+        return moe_route_ref(logits, k, capacity)
+
+    def plain_flash(q, k, v, causal=True, window=None, softcap=0.0, q_offset=0, **kw):
+        return attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                             q_offset=q_offset)
+
+    def compare(bundle, params, tokens):
+        worst = {"abs": 0.0, "rel": 0.0, "bad": [], "n": 0}
+        ssd, routes = [], []
+
+        def ssd_checked(x, dt, A_log, Bm, Cm, chunk):
+            y, st = ssd_kernel(x, dt, A_log, Bm, Cm, chunk)
+            yr, sr = ssd_chunked(x.float(), dt, A_log, Bm.float(), Cm.float(), chunk)
+            atol, rtol = SSD_TOL[str(x.dtype)]
+            ssd.append((max_err(y.float(), yr), max_err(st, sr),
+                        torch.allclose(y.float(), yr, atol=atol, rtol=rtol)
+                        and torch.allclose(st, sr, atol=2e-4, rtol=1e-3), tuple(x.shape)))
+            return y, st
+
+        def route_checked(logits, k, capacity, *a):
+            out = route_kernel(logits, k, capacity, *a)
+            ref = moe_route_ref(logits, k, capacity)
+            same = all(a_.dtype == b_.dtype and torch.equal(a_, b_)
+                       for a_, b_ in zip(out[1:], ref[1:]))
+            routes.append((max_err(out[0], ref[0]), same, tuple(logits.shape)))
+            return out
+
+        with _swapped(fpkg, "flash_attention", _flash_holder("jamba", worst)), \
+                _swapped(spkg, "ssd_scan", ssd_checked), \
+                _swapped(mpkg, "moe_route", route_checked):
+            lk = bundle.prefill(params, tokens=tokens)[0]
+        log(f"jamba: {tokens.shape[1]} tokens, each kernel at its own inputs: flash at the "
+            f"attention slot {sorted(worst['shapes'])}: max abs err {worst['abs']}, "
+            f"relative L2 {worst['rel']:.3e} (tolerances {FLASH_TOL[str(torch.bfloat16)]}, "
+            f"{FLASH_BF16_REL_L2}); SSD at {len(ssd)} mixers x {ssd[0][3]}: max abs err y "
+            f"{max(e[0] for e in ssd)}, state {max(e[1] for e in ssd)} (tolerances "
+            f"{SSD_TOL[str(torch.bfloat16)]}, (2e-4, 1e-3)); router at {len(routes)} MoE "
+            f"slots, logits {routes[0][2]}: ids, ordinals and keep "
+            f"{'bit for bit' if all(r[1] for r in routes) else 'DIFFER'}, weights max abs "
+            f"err {max(r[0] for r in routes)} (tolerance {MOE_W_ATOL})")
+        check(worst["n"] == 1 and not worst["bad"],
+              f"jamba: flash differs from attention_ref ({worst['n']} calls, bad "
+              f"{worst['bad']})")
+        check(len(ssd) == n_mixers and all(e[2] for e in ssd),
+              f"jamba: the SSD kernel differs from ssd_chunked at mixers "
+              f"{[i for i, e in enumerate(ssd) if not e[2]]} of {len(ssd)}")
+        check(len(routes) == n_moe and all(r[1] and r[0] <= MOE_W_ATOL for r in routes),
+              f"jamba: the router differs from moe_route_ref at slots "
+              f"{[i for i, r in enumerate(routes) if not (r[1] and r[0] <= MOE_W_ATOL)]}")
+        with _swapped(mpkg, "moe_route", plain_route):
+            lr = bundle.prefill(params, tokens=tokens)[0]
+        with _swapped(mpkg, "moe_route", plain_route), \
+                _swapped(fpkg, "flash_attention", plain_flash), \
+                _swapped(spkg, "ssd_scan", ssd_chunked):
+            lp = bundle.prefill(params, tokens=tokens)[0]
+        log(f"jamba: {tokens.shape[1]} tokens, not held (random bf16 stacks with top-2 "
+            f"routing are chaotic): prefill logits through the kernels against the all-plain "
+            f"prefill (attention_ref, ssd_chunked, moe_route_ref) relative L2 "
+            f"{rel_l2(lk, lp):.3e}, argmax {int(lk.argmax())} vs {int(lp.argmax())}")
+        return lk, lr
+
+    def splice_run(bundle, params):
+        # the same traffic through a second engine, after the timed run, so
+        # that the check's copies and syncs stay out of the timed window
+        spliced = []
+        engine = ServeEngine(bundle, params, slots=SERVE_SLOTS, cache_len=SERVE_CACHE_LEN)
+        for i, p in enumerate(serve_prompts(args.seed, cfg.vocab_size)[1]):
+            engine.submit(Request(i, p, max_new_tokens=SERVE_NEW))
+        with _swapped(engine_mod, "_splice", _jamba_splice_check(engine_mod._splice, spliced)):
+            done = engine.run_to_completion()
+        log(f"jamba: splice check in an untimed second engine run, at {len(spliced)} "
+            f"admissions: "
+            f"{'every slot equal to its request cache, the others unchanged' if all(spliced) else spliced}")
+        check(len(done) == SERVE_REQUESTS and len(spliced) == SERVE_REQUESTS and all(spliced),
+              f"jamba: the engine spliced a request cache wrongly: {spliced}")
+        return {"splice_checked": len(spliced)}
+
+    launches, report = serve_phase(
+        args, "jamba", cfg,
+        lambda prefills, ticks: {"flash_attention": prefills,
+                                 "ssd_scan": n_mixers * prefills,
+                                 "moe_route": n_moe * (prefills + ticks)},
+        compare, MOE_REL_L2,
+        note=f", {cfg.num_layers} of its {full.num_layers} layers (one block) with "
+             f"{cfg.num_experts} of its {full.num_experts} experts a MoE slot, top-"
+             f"{cfg.experts_per_token} (JAMBA_LAYERS, JAMBA_EXPERTS: one whole block "
+             f"is 84.1 GiB in bf16)", extra=splice_run)
+    return {k: v[0] for k, v in launches.items()}, report
+
+
+def serve_internvl(args):
+    """InternVL2-1B, whole: the shared traffic through the engine, text-only
+    (the engine feeds token prompts, as the JAX engine does), every prefill
+    through flash (G = 7, hd 64); then one batch of ``INTERNVL_PATCH_BATCH``
+    through ``bundle.prefill(tokens=, patches=)`` (256 patches of width
+    ``VIT_DIM`` prepended, a cache of 1312) and ``SERVE_NEW`` decode steps.
+    Prefill logits against the chunked attention's at ``SERVE_REL_L2``, with
+    and without the patch prefix. Returns ({kernel: launches, the patch
+    batch's included}, report)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model_zoo import VIT_DIM
+
+    cfg = get_config("internvl2-1b").with_overrides(attn_impl="flash")
+    chunked = build_model(cfg.with_overrides(attn_impl="chunked"))
+    B, P, S = INTERNVL_PATCH_BATCH
+    patch_launches = {}
+
+    def patch_batch(bundle, params):
+        g = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+        patches = torch.randn((B, P, VIT_DIM), generator=g, device="cuda").to(torch.bfloat16)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda",
+                               dtype=torch.int32)
+        cache_len = P + S + SERVE_NEW
+        K.reset_launches()
+        (logits, cache), pre_ms = timed(lambda: bundle.prefill(
+            params, tokens=tokens, patches=patches, cache_len=cache_len))
+        steps = []
+        for _ in range(SERVE_NEW):
+            nxt = logits.argmax(-1).to(torch.int32)[:, None]
+            (logits, cache), ms = timed(lambda: bundle.decode_step(params, cache, nxt))
+            steps.append(ms)
+        fns = K.launch_counters()
+        patch_launches.update({k: fn.launches for k, fn in fns.items()})
+        check(bool(torch.isfinite(logits).all()), "internvl: a decode logit is not finite")
+        check(patch_launches == {**{k: 0 for k in fns}, "flash_attention": cfg.num_layers}
+              and fns["flash_attention"].launches_by_variant == {"wgmma": cfg.num_layers},
+              f"internvl: the patch batch launched {patch_launches}, expected flash "
+              f"{cfg.num_layers} on wgmma")
+        check(int(cache["pos"][0]) == cache_len, f"internvl: pos {cache['pos'].tolist()}")
+        lk = bundle.prefill(params, tokens=tokens, patches=patches, cache_len=cache_len)[0]
+        lc = chunked.prefill(params, tokens=tokens, patches=patches, cache_len=cache_len)[0]
+        rel = rel_l2(lk, lc)
+        log(f"internvl: patch batch {B} x ({P} patches of {VIT_DIM} + {S} tokens), cache "
+            f"{cache_len}: prefill {pre_ms:.3f} ms, decode ms per step median "
+            f"{np.median(steps):.3f} over {SERVE_NEW} ({B * SERVE_NEW / (sum(steps) / 1e3):.1f} "
+            f"tokens/s in decode), latency {pre_ms + sum(steps):.1f} ms; flash launches "
+            f"{cfg.num_layers}; prefill logits against the chunked attention's relative L2 "
+            f"{rel:.3e} (tolerance {SERVE_REL_L2})")
+        check(rel <= SERVE_REL_L2, f"internvl: flash and chunked patch-prefill logits differ: "
+              f"rel L2 {rel}")
+        nxt = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+        where_time("internvl patch-batch decode step",
+                   lambda: bundle.decode_step(params, cache, nxt))
+        where_time(f"internvl prefill of {B} x ({P} patches + {S} tokens)",
+                   lambda: bundle.prefill(params, tokens=tokens, patches=patches,
+                                          cache_len=cache_len))
+        return dict(patch_prefill_ms=pre_ms, patch_decode_ms=steps, patch_rel_l2=rel)
+
+    launches, report = serve_phase(
+        args, "internvl", cfg,
+        lambda prefills, ticks: {"flash_attention": cfg.num_layers * prefills},
+        lambda bundle, params, tok: (bundle.prefill(params, tokens=tok)[0],
+                                     chunked.prefill(params, tokens=tok)[0]),
+        SERVE_REL_L2, note=" (text-only through the engine, as the JAX engine serves it)",
+        extra=patch_batch)
+    total = {k: v[0] + patch_launches.get(k, 0) for k, v in launches.items()}
+    log(f"internvl: flash launches {total['flash_attention']} = {cfg.num_layers} x "
+        f"({SERVE_REQUESTS} engine prefills + the patch batch)")
+    return total, report
+
+
+def serve_whisper(args):
+    """Whisper-tiny, whole (4 encoder and 4 decoder layers), through the
+    bundle (the engine feeds token prompts, as the JAX one): ``WHISPER_BATCHES``
+    batches of ``WHISPER_CLIPS`` clips, each ``frames`` (clips, ``enc_seq``,
+    D) bf16 and a decoder prompt of ``WHISPER_PREFILL_DEC`` tokens through
+    ``bundle.prefill(frames=, tokens=)``, then ``SERVE_NEW`` decode steps (a
+    k/v slab with room for them). Flash: 4 encoder (not causal), 4 decoder
+    self (causal), 4 cross (Sq 256 against Skv 1500, not causal, q_offset 0)
+    per prefill, none in decode (the cached cross K/V meet the plain
+    ``attend``, as in the JAX package). Each kind of flash call is held at
+    its first layer's own inputs against ``attention_ref``; the prefill
+    logits against the chunked attention's at ``SERVE_REL_L2``."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as Fn
+
+    import repro_torch.kernels.flash_attention as fpkg
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.model_zoo import WHISPER_PREFILL_DEC
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("whisper-tiny").with_overrides(attn_impl="flash")
+    bundle = build_model(cfg)
+    chunked = build_model(cfg.with_overrides(attn_impl="chunked"))
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(args.seed))
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"whisper: {cfg.name} ({cfg.source}) whole, {n_params} parameters in "
+        f"{cfg.param_dtype} (position tables of {params.pos_dec.shape[0]}, as the bundle "
+        f"sizes them); {WHISPER_BATCHES} batches of {WHISPER_CLIPS} clips x {cfg.enc_seq} "
+        f"frames, prompts of {WHISPER_PREFILL_DEC} tokens, {SERVE_NEW} new tokens each")
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    batches = [(torch.randn((WHISPER_CLIPS, cfg.enc_seq, cfg.d_model), generator=g,
+                            device="cuda").to(torch.bfloat16),
+                torch.randint(0, cfg.vocab_size, (WHISPER_CLIPS, WHISPER_PREFILL_DEC),
+                              generator=g, device="cuda", dtype=torch.int32))
+               for _ in range(WHISPER_BATCHES)]
+    pad = (0, 0, 0, 0, 0, SERVE_NEW)  # room on the k/v slab's length axis
+
+    K.reset_launches()
+    prefill_ms, decode_ms, latency, caches = [], [], [], []
+    t_all = time.perf_counter()
+    for frames, tokens in batches:
+        t0 = time.perf_counter()
+        (logits, cache), ms = timed(lambda: bundle.prefill(params, frames=frames,
+                                                           tokens=tokens))
+        prefill_ms.append(ms)
+        check(bool(torch.isfinite(logits).all()), "whisper: a prefill logit is not finite")
+        cache = {**cache, "k": Fn.pad(cache["k"], pad), "v": Fn.pad(cache["v"], pad)}
+        for _ in range(SERVE_NEW - 1):
+            nxt = logits.argmax(-1).to(torch.int32)[:, None]
+            (logits, cache), ms = timed(lambda: bundle.decode_step(params, cache, nxt))
+            decode_ms.append(ms)
+        check(bool(torch.isfinite(logits).all()), "whisper: a decode logit is not finite")
+        latency.append((time.perf_counter() - t0) * 1e3)
+        caches.append(cache)
+    wall = time.perf_counter() - t_all
+    fns = K.launch_counters()
+    launches = {k: fn.launches for k, fn in fns.items()}
+    per_prefill = cfg.enc_layers + 2 * cfg.num_layers
+    want = {**{k: 0 for k in fns}, "flash_attention": per_prefill * WHISPER_BATCHES}
+    check(launches == want and fns["flash_attention"].launches_by_variant
+          == {"wgmma": want["flash_attention"]},
+          f"whisper: launches {launches} by route "
+          f"{fns['flash_attention'].launches_by_variant}, expected {want} on wgmma")
+    peak = torch.cuda.max_memory_allocated()
+    gen = WHISPER_BATCHES * WHISPER_CLIPS * SERVE_NEW
+    log(f"whisper: {WHISPER_BATCHES * WHISPER_CLIPS} requests x {SERVE_NEW} tokens in "
+        f"{wall * 1e3:.1f} ms: {gen / wall:.1f} generated tokens/s; flash launches "
+        f"{launches['flash_attention']} ({per_prefill} a prefill, none in decode); prefill ms "
+        f"{[round(x, 3) for x in prefill_ms]}; decode ms per step median "
+        f"{np.median(decode_ms):.3f}, mean {np.mean(decode_ms):.3f} over {len(decode_ms)}; "
+        f"latency per batch {[round(x, 1) for x in latency]} ms; peak max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+
+    frames, tokens = batches[0]
+    seen = []
+    with torch.no_grad(), _swapped(fpkg, "flash_attention",
+                                   _recording(seen, fpkg.flash_attention, per_prefill)):
+        bundle.prefill(params, frames=frames, tokens=tokens)
+    for kind, i in zip(WHISPER_FLASH_KINDS, (0, cfg.enc_layers, cfg.enc_layers + 1)):
+        worst = {"abs": 0.0, "rel": 0.0, "bad": [], "n": 0}
+        q, k, v, causal, window, softcap, q_offset = seen[i][:7]
+        _flash_holder("whisper", worst)(q, k, v, causal, window, softcap, q_offset)
+        log(f"whisper: flash {kind} at layer 0's inputs q {tuple(q.shape)} k "
+            f"{tuple(k.shape)} causal {causal} q_offset {q_offset}: max abs err "
+            f"{worst['abs']}, relative L2 {worst['rel']:.3e}")
+        check(not worst["bad"], f"whisper: flash {kind} differs from attention_ref")
+    check(seen[cfg.enc_layers + 1][1].shape[2] == cfg.enc_seq
+          and not seen[cfg.enc_layers + 1][3], "whisper: the cross call is not (Skv 1500, "
+          "not causal)")
+    for frames, tokens in batches:
+        lk = bundle.prefill(params, frames=frames, tokens=tokens)[0]
+        lc = chunked.prefill(params, frames=frames, tokens=tokens)[0]
+        rel = rel_l2(lk, lc)
+        log(f"whisper: prefill logits against the chunked attention's relative L2 {rel:.3e} "
+            f"(tolerance {SERVE_REL_L2}); argmax agree on "
+            f"{int((lk.argmax(-1) == lc.argmax(-1)).sum())} of {WHISPER_CLIPS}")
+        check(rel <= SERVE_REL_L2, f"whisper: flash and chunked prefill logits differ: {rel}")
+    nxt = torch.zeros((WHISPER_CLIPS, 1), dtype=torch.int32, device="cuda")
+    where_time("whisper decode step", lambda: bundle.decode_step(params, caches[0], nxt))
+    where_time(f"whisper prefill of {WHISPER_CLIPS} x ({cfg.enc_seq} frames + "
+               f"{WHISPER_PREFILL_DEC} tokens)",
+               lambda: bundle.prefill(params, frames=frames, tokens=tokens))
+    report = dict(prefill_ms=prefill_ms, decode_ms=decode_ms, latency_ms=latency,
+                  tokens_per_s=gen / wall, peak_gib=peak / 2**30)
+    del params, bundle, chunked, caches, batches, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+#: the family serve phases, in order, and the row key of their launches
+FAMILY_PHASES = (("jamba", serve_jamba), ("internvl", serve_internvl),
+                 ("whisper", serve_whisper))
+
+
+# ---------------------------------------------------------------------------
 # the train phase
 # ---------------------------------------------------------------------------
 
@@ -3592,15 +4043,29 @@ def _grad_gap(label, g_kernel, g_plain, what="through the kernels"):
     return rels[-1][0]
 
 
-def train_run(label, cfg, B, S, steps, kernel, prepare=None):
+def model_inputs(batch, cfg):
+    """A device batch as the model takes it: audio ``frames``, f32 on the
+    host because the pipeline moves numpy, cast to the weights' dtype, as
+    ``encdec.encode`` requires."""
+    import torch
+
+    if "frames" not in batch:
+        return batch
+    return dict(batch, frames=batch["frames"].to(getattr(torch, cfg.param_dtype)))
+
+
+def train_run(label, cfg, B, S, steps, kernel, prepare=None, extra=None, passes=None,
+              tokens=None):
     """``cfg`` at full width (random bf16 weights from a seeded generator)
     takes ``steps`` ``bundle.train_step``s on synthetic batches fed by
-    ``TrainPipeline`` (each device batch held against its host batch).
-    ``prepare(bundle, params, batch)``, run first, checks what needs the
-    initial weights and returns a report. Checks: ``kernel`` launched
-    layers x steps x 2 times (forward and remat's recompute), every loss
-    finite. Reports step ms, tokens/s, peak memory, and one step's device
-    busy time and idle share."""
+    ``TrainPipeline`` (each device batch held against its host batch);
+    ``extra(i)`` adds numpy inputs to batch ``i`` (a VLM's patches, audio
+    frames). ``prepare(bundle, params, batch)``, run first, checks what
+    needs the initial weights and returns a report. Checks: ``kernel``
+    launched ``passes`` (by default the layers) x steps x 2 times (forward
+    and remat's recompute), every loss finite. Reports step ms, tokens/s
+    (``tokens`` a batch, by default B x S), peak memory, and one step's
+    device busy time and idle share."""
     import gc
 
     import numpy as np
@@ -3620,7 +4085,10 @@ def train_run(label, cfg, B, S, steps, kernel, prepare=None):
     n_params = sum(p.numel() for p in params.parameters())
     it = synthetic_batches(cfg.vocab_size, B, S, 0)
     host = [next(it) for _ in range(steps)]
-    first = {k: torch.as_tensor(v, device="cuda") for k, v in host[0].items()}
+    for i, hb in enumerate(host):
+        hb.update(extra(i) if extra else {})
+    first = model_inputs({k: torch.as_tensor(v, device="cuda") for k, v in host[0].items()},
+                         cfg)
     log(f"train: {label}: {cfg.name} ({cfg.source}) at full width, {cfg.num_layers} layers, "
         f"{n_params} parameters in {cfg.param_dtype}, moments {cfg.opt_moment_dtype}, remat "
         f"{cfg.remat}, attention {cfg.attn_impl}; B {B} x S {S}, {steps} steps; "
@@ -3636,7 +4104,7 @@ def train_run(label, cfg, B, S, steps, kernel, prepare=None):
     for i, batch in enumerate(pipe):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt, loss = bundle.train_step(params, opt, batch)
+        params, opt, loss = bundle.train_step(params, opt, model_inputs(batch, cfg))
         losses.append(float(loss))
         ms.append((time.perf_counter() - t0) * 1e3)
         for k, v in host[i].items():
@@ -3648,7 +4116,7 @@ def train_run(label, cfg, B, S, steps, kernel, prepare=None):
     peak = torch.cuda.max_memory_allocated()
     want = {k: 0 for k in fns}
     if kernel:
-        want[kernel] = cfg.num_layers * steps * 2
+        want[kernel] = (passes or cfg.num_layers) * steps * 2
     check(launches == want, f"train: {label}: launches {launches}, expected {want}")
     if kernel == "flash_attention":
         check(fns[kernel].launches_by_variant == {"wgmma": want[kernel]},
@@ -3656,12 +4124,13 @@ def train_run(label, cfg, B, S, steps, kernel, prepare=None):
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"train: {label}: losses {losses}")
     step_ms = float(np.median(ms[1:]))
+    tokens = tokens or B * S
     where = step_profile(f"{label} train step", lambda: bundle.train_step(params, opt, first))
     log(f"train: {label}: losses {[round(x, 4) for x in losses]}; step ms {[round(x, 1) for x in ms]}"
-        f", median after the first {step_ms:.1f} ({B * S / step_ms * 1e3:.0f} tokens/s); peak "
+        f", median after the first {step_ms:.1f} ({tokens / step_ms * 1e3:.0f} tokens/s); peak "
         f"max_memory_allocated {peak / 2**30:.2f} GiB; launches {launches}")
     out = dict(report, steps=steps, losses=losses, step_ms=step_ms,
-               tokens_per_s=B * S / step_ms * 1e3, peak_gib=peak / 2**30, launches=launches,
+               tokens_per_s=tokens / step_ms * 1e3, peak_gib=peak / 2**30, launches=launches,
                busy_ms=where["busy_ms"], idle=where["idle"])
     del params, opt, bundle, pipe
     gc.collect()
@@ -3792,6 +4261,218 @@ def train_mixtral():
     return train_run("mixtral", cfg, B, S, steps, "moe_route", prepare)
 
 
+#: InternVL2-1B's train cell (the JAX VLM train cell's split of S = 2048):
+#: batch, patches of width ``VIT_DIM``, text tokens, steps
+INTERNVL_TRAIN = (4, 256, 1792, 6)
+#: Whisper-tiny's train cell: batch, decoder tokens (Whisper's published
+#: decoder length), steps; ``WHISPER_TRAIN_ENC`` frames a clip
+WHISPER_TRAIN = (8, 448, 6)
+#: Jamba's gradient at full width: one block (``JAMBA_LAYERS``) with
+#: ``JAMBA_TRAIN_EXPERTS`` experts a MoE slot, one ``bundle.value_and_grad``
+#: at (B, S) = ``JAMBA_TRAIN``, no optimizer step: 4 experts are 16.15e9
+#: parameters (30.1 GiB in bf16) and the gradients as much again; even 2
+#: experts (11.32e9) need some 90 GB with bf16 weights, gradients and Jamba's
+#: bf16 moments, so no full-width cut takes an Adam step on one card
+JAMBA_TRAIN_EXPERTS = 4
+JAMBA_TRAIN = (1, 2048)
+#: the reckoned peak above which the Jamba gradient's S is halved
+JAMBA_TRAIN_PEAK_GIB = 76
+
+
+def train_internvl():
+    """InternVL2-1B, whole, bf16, ``remat="full"``, flash: batches of
+    ``INTERNVL_TRAIN`` (256 f32 patches prepended to 1792 tokens, S = 2048,
+    no loss on the prefix). Flash's Function at layer 0's own inputs:
+    forward against ``attention_ref``, backward bit for bit against its
+    autograd."""
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels.flash_attention as fpkg
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import VIT_DIM
+
+    cfg = get_config("internvl2-1b").with_overrides(attn_impl="flash")
+    B, P, S, steps = INTERNVL_TRAIN
+
+    def patches(i):
+        rng = np.random.default_rng(100 + i)
+        return {"patches": rng.standard_normal((B, P, VIT_DIM), dtype=np.float32)}
+
+    def prepare(bundle, params, batch):
+        seen = []
+        with torch.no_grad(), _swapped(fpkg, "flash_attention",
+                                       _recording(seen, fpkg.flash_attention)):
+            bundle.train_loss(params, batch)
+        check(seen[0][0].shape[2] == P + S, f"train: internvl: flash saw Sq "
+              f"{seen[0][0].shape[2]}, expected {P + S} (patches + tokens)")
+        kw = dict(zip(("causal", "window", "softcap", "q_offset"), seen[0][3:7]))
+        fwd_ms, bwd_ms = hold_flash_backward(seen[0][:3], kw)
+        return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+
+    return train_run("internvl", cfg, B, S, steps, "flash_attention", prepare, extra=patches,
+                     tokens=B * (P + S))
+
+
+def train_whisper():
+    """Whisper-tiny, whole (4 encoder, 4 decoder layers), bf16, ``remat=
+    "full"``, flash: batches of ``WHISPER_TRAIN`` with ``frames`` (B,
+    ``WHISPER_TRAIN_ENC``, D) of bf16 values (f32 on the host: the pipeline
+    moves numpy; cast to bf16 on the card by ``model_inputs``), 12 flash
+    calls a forward. The cross-attention Function
+    (decoder layer 0) at its own inputs: forward against ``attention_ref``,
+    backward bit for bit against its autograd."""
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels.flash_attention as fpkg
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import WHISPER_TRAIN_ENC
+
+    cfg = get_config("whisper-tiny").with_overrides(attn_impl="flash")
+    B, S, steps = WHISPER_TRAIN
+    passes = cfg.enc_layers + 2 * cfg.num_layers
+
+    def frames(i):
+        g = torch.Generator().manual_seed(200 + i)
+        x = torch.randn((B, WHISPER_TRAIN_ENC, cfg.d_model), generator=g)
+        return {"frames": x.to(torch.bfloat16).float().numpy()}
+
+    def prepare(bundle, params, batch):
+        seen = []
+        with torch.no_grad(), _swapped(fpkg, "flash_attention",
+                                       _recording(seen, fpkg.flash_attention, passes)):
+            bundle.train_loss(params, batch)
+        cross = seen[cfg.enc_layers + 1]
+        check(cross[1].shape[2] == WHISPER_TRAIN_ENC and cross[0].shape[2] == S
+              and not cross[3], f"train: whisper: the cross call has q "
+              f"{tuple(cross[0].shape)}, k {tuple(cross[1].shape)}, causal {cross[3]}")
+        kw = dict(zip(("causal", "window", "softcap", "q_offset"), cross[3:7]))
+        fwd_ms, bwd_ms = hold_flash_backward(cross[:3], kw)
+        return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+
+    return train_run("whisper", cfg, B, S, steps, "flash_attention", prepare, extra=frames,
+                     passes=passes, tokens=B * (WHISPER_TRAIN_ENC + S))
+
+
+def jamba_grad_peak_gib(n_params, cfg, B, S):
+    """The reckoned peak of Jamba's ``value_and_grad``: weights and gradients
+    in bf16 (4 B a parameter), and the block's activations, held from its
+    recompute (remat full) through its backward, per token: each MoE slot's
+    (E, C, F) gate, up, product and SiLU at 2.5 rows a token (capacity 1.25
+    x top-2) in bf16, each mixer's in_proj output, conv and gate some five
+    times its 2·d_inner + 2·N + H columns in bf16, each dense MLP's three
+    (F,) rows, and the f32 logits, their softmax and gradient; plus one
+    mixer's plain SSD backward (ssd_ref's autograd, some five (chunk,
+    chunk, H) f32 tensors a chunk)."""
+    F, V = cfg.d_ff, cfg.vocab_size
+    cols = 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
+    per_token = 4 * 2.5 * F * 2 * 4 + 7 * cols * 2 * 5 + 4 * 3 * F * 2 + 3 * V * 4
+    chunks = -(-S // cfg.ssm_chunk)
+    ssd = B * chunks * 5 * cfg.ssm_chunk ** 2 * cfg.ssm_heads * 4
+    return (4 * n_params + B * S * per_token + ssd) / 2**30
+
+
+def train_jamba():
+    """Jamba-1.5-Large at full width, one block (``JAMBA_LAYERS``) with
+    ``JAMBA_TRAIN_EXPERTS`` experts a MoE slot: one ``bundle.value_and_grad``
+    at ``JAMBA_TRAIN``, ``remat="full"``, flash, no optimizer step (see
+    ``JAMBA_TRAIN_EXPERTS``). The peak is reckoned first
+    (``jamba_grad_peak_gib``); above ``JAMBA_TRAIN_PEAK_GIB`` S is halved.
+    Holds, at the block's own inputs (a no-grad forward first): the SSD
+    forward at all 7 mixers and the router at all 4 MoE slots against their
+    plain versions, and the three Functions' backwards (flash at the
+    attention slot, the SSD at the first mixer, the router at the first MoE
+    slot) bit for bit against the plain versions' autograd. Checks: flash
+    launched 1 x 2, the SSD 7 x 2, the router 4 x 2 (forward and remat's
+    recompute), a finite loss and gradient. Reports the call's ms and the
+    peak."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import repro_torch.kernels.flash_attention as fpkg
+    import repro_torch.kernels.moe_route as mpkg
+    import repro_torch.kernels.ssd_scan as spkg
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TrainPipeline
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.models import build_model
+    from repro_torch.models.model_zoo import analytic_param_count
+
+    full = get_config("jamba-1.5-large-398b")
+    cfg = full.with_overrides(num_layers=JAMBA_LAYERS, num_experts=JAMBA_TRAIN_EXPERTS,
+                              attn_impl="flash")
+    B, S = JAMBA_TRAIN
+    n = analytic_param_count(cfg)
+    est = jamba_grad_peak_gib(n, cfg, B, S)
+    log(f"train: jamba: {n} parameters ({n * 2 / 2**30:.2f} GiB in bf16); reckoned peak at "
+        f"{B} x {S}: {est:.2f} GiB (limit {JAMBA_TRAIN_PEAK_GIB})")
+    while est > JAMBA_TRAIN_PEAK_GIB:
+        S //= 2
+        est = jamba_grad_peak_gib(n, cfg, B, S)
+        log(f"train: jamba: S halved to {S} (the cut): reckoned peak {est:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build_model(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"train: jamba: {cfg.name} ({cfg.source}) at full width, {cfg.num_layers} of its "
+        f"{full.num_layers} layers with {cfg.num_experts} of its {full.num_experts} experts, "
+        f"remat {cfg.remat}, attention {cfg.attn_impl}; initialised in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    pipe = TrainPipeline(synthetic_batches(cfg.vocab_size, B, S, 0), device="cuda")
+    batch = next(iter(pipe))
+    pipe.close()
+
+    flash, ssd, route = [], [], []
+    with torch.no_grad(), \
+            _swapped(fpkg, "flash_attention", _recording(flash, fpkg.flash_attention)), \
+            _swapped(spkg, "ssd_scan", _recording(ssd, spkg.ssd_scan, 7)), \
+            _swapped(mpkg, "moe_route", _recording(route, mpkg.moe_route, 4)):
+        bundle.train_loss(params, batch)
+    check(len(flash) == 1 and len(ssd) == 7 and len(route) == 4,
+          f"train: jamba: the forward made {len(flash)}, {len(ssd)}, {len(route)} kernel calls")
+    hold_ssd_forward(ssd)
+    hold_router_forward(route)
+    kw = dict(zip(("causal", "window", "softcap", "q_offset"), flash[0][3:7]))
+    report = {}
+    report["flash_fwd_ms"], report["flash_bwd_ms"] = hold_flash_backward(flash[0][:3], kw)
+    report["ssd_fwd_ms"], report["ssd_bwd_ms"] = hold_ssd_backward(ssd[0][:6])
+    report["route_fwd_ms"], report["route_bwd_ms"] = hold_router_backward(route[0])
+    del flash, ssd, route
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    K.reset_launches()
+    (loss, grads), ms = timed(lambda: bundle.value_and_grad(params, batch))
+    fns = K.launch_counters()
+    launches = {k: fn.launches for k, fn in fns.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {**{k: 0 for k in fns}, "flash_attention": 2, "ssd_scan": 14, "moe_route": 8}
+    check(launches == want, f"train: jamba: launches {launches}, expected {want}")
+    finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
+                                                for g in grads.values())
+    check(finite, "train: jamba: the loss or a gradient is not finite")
+    norm = float(torch.stack([g.float().norm() for g in grads.values()]).norm())
+    log(f"train: jamba: value_and_grad at {B} x {S}: loss {float(loss):.4f}, gradient norm "
+        f"{norm:.4e}, every gradient finite; {ms:.1f} ms ({B * S / ms * 1e3:.0f} tokens/s); "
+        f"peak max_memory_allocated {peak:.2f} GiB (reckoned {est:.2f}); launches {launches}")
+    out = dict(report, steps=1, losses=[float(loss)], step_ms=ms,
+               tokens_per_s=B * S / ms * 1e3, peak_gib=peak, reckoned_gib=est, seq=S,
+               launches=launches, busy_ms=None, idle=None, fwd_ms=report["flash_fwd_ms"],
+               bwd_ms=report["flash_bwd_ms"])
+    del params, grads, bundle, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _hybrid_example():
     spec = importlib.util.spec_from_file_location(
         "torch_hybrid_train", os.path.join(HERE, "examples", "torch_hybrid_train.py"))
@@ -3910,16 +4591,28 @@ def train_hybrid():
 
 #: the train run that launches each model kernel
 TRAIN_KERNEL_RUN = {"flash_attention": "olmo", "ssd_scan": "mamba", "moe_route": "mixtral"}
+#: the model kernels, whose kernels-line rows carry the family phases'
+#: launches (``family_launches``), and the family train runs among them
+MODEL_KERNELS = tuple(TRAIN_KERNEL_RUN)
+FAMILY_TRAIN_RUNS = ("internvl", "whisper", "jamba")
 
 
 def train_phase():
     """The training path at full width: the hybrid app, then OLMo-1B
     (flash), Mamba2-780M (the SSD scan) and Mixtral-8x7B at
-    ``MIXTRAL_TRAIN_LAYERS`` layers (the router). Returns each run's report;
-    ``launches`` of each model run are its kernel's training launches."""
+    ``MIXTRAL_TRAIN_LAYERS`` layers (the router), then InternVL2-1B (flash
+    over the patch prefix), Whisper-tiny (flash: encoder, decoder self and
+    cross) and Jamba's gradient (all three kernels). Returns each run's
+    report; ``launches`` of each model run are its kernels' training
+    launches."""
     t0 = time.perf_counter()
     out = {"hybrid": train_hybrid(), "olmo": train_olmo(), "mamba": train_mamba(),
            "mixtral": train_mixtral()}
+    for label, run in (("internvl", train_internvl), ("whisper", train_whisper),
+                       ("jamba", train_jamba)):
+        t1 = time.perf_counter()
+        out[label] = run()
+        log(f"train: {label}: run took {time.perf_counter() - t1:.1f} s")
     for label, r in out.items():
         log(f"train: {label}: step {r['step_ms']:.2f} ms, {r['tokens_per_s']:.0f} tokens/s, "
             f"peak {r['peak_gib']:.2f} GiB, one step's device busy {r['busy_ms']} ms, idle share "
@@ -4166,11 +4859,22 @@ def main() -> int:
         t0 = time.perf_counter()
         serve_phi(args)
         log(f"phi: serve phase took {time.perf_counter() - t0:.1f} s")
+        family, t_fam = {}, time.perf_counter()
+        for label, phase in FAMILY_PHASES:
+            t0 = time.perf_counter()
+            family[label] = phase(args)[0]
+            log(f"{label}: serve phase took {time.perf_counter() - t0:.1f} s")
+        log(f"the family serve phases took {time.perf_counter() - t_fam:.1f} s")
         trained = train_phase()
         for row in rows:
             label = TRAIN_KERNEL_RUN.get(row["name"])
             if label:
                 row["train_launches"] = trained[label]["launches"][row["name"]]
+            if row["name"] in MODEL_KERNELS:
+                row["family_launches"] = {
+                    **{k: family[k].get(row["name"], 0) for k, _ in FAMILY_PHASES},
+                    **{f"train_{k}": trained[k]["launches"].get(row["name"], 0)
+                       for k in FAMILY_TRAIN_RUNS}}
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -2,14 +2,14 @@
 ``repro.configs.base``, which the port does not import).
 
 Every architecture is a frozen ``ArchConfig``; ``reduced()`` derives a tiny
-same-family config for CPU tests. The port registers the configurations its
-slices run: ``qwen3-14b``, ``olmo-1b``, ``yi-9b`` and ``gemma3-4b`` (the
-dense family), ``mamba2-780m`` (the SSM family), ``mixtral-8x7b`` and
-``phi3.5-moe-42b-a6.6b`` (the MoE family) and the paper's own presets
-``ignis-tiny`` / ``ignis-100m``. The other architectures of the JAX package
-come with their families (ROADMAP: the other families). The analytic
-parameter count is not ported: a model's parameters are counted from its
-module.
+same-family config for CPU tests. The port registers every configuration
+of the JAX package: the dense family (``qwen3-14b``, ``olmo-1b``, ``yi-9b``,
+``gemma3-4b``), the SSM family (``mamba2-780m``), the MoE family
+(``mixtral-8x7b``, ``phi3.5-moe-42b-a6.6b``), the hybrid
+(``jamba-1.5-large-398b``), the VLM (``internvl2-1b``), the audio
+encoder-decoder (``whisper-tiny``) and the paper's own presets
+``ignis-tiny`` / ``ignis-100m``. ``param_count``/``active_param_count``
+are the model zoo's analytic counts.
 """
 from __future__ import annotations
 
@@ -135,6 +135,17 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    def param_count(self) -> int:
+        """Analytic parameter count (for MODEL_FLOPS = 6·N·D)."""
+        from repro_torch.models.model_zoo import analytic_param_count
+
+        return analytic_param_count(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.model_zoo import analytic_param_count
+
+        return analytic_param_count(self, active_only=True)
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""
         kw = dict(
@@ -179,8 +190,7 @@ def get_config(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         import repro_torch.configs  # noqa: F401  (registers all)
     if name not in _REGISTRY:
-        raise KeyError(f"arch {name!r} is not ported yet (ROADMAP: the other "
-                       f"families of the model zoo); ported: {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 

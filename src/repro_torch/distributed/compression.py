@@ -13,9 +13,10 @@ added back next step, preserving convergence — Karimireddy et al.):
 
 Gradients and error-feedback state map each parameter's name to a tensor.
 A JAX leaf stacks the layers, so its "per tensor" is per stacked leaf: here
-the layers' parameters of one path (``layers.<i>.attn.wq`` for every i)
-share one int8 scale and one top-k threshold, k counted over all of them,
-as in the JAX function. The port runs on one card, so nothing is reduced
+the layers' parameters of one path (``layers.<i>.attn.wq`` for every i; the
+hybrid's ``blocks.<b>.…`` and the encoder-decoder's ``enc_layers.<i>.…`` and
+``dec_layers.<i>.…`` alike) share one int8 scale and one top-k threshold, k
+counted over all of them, as in the JAX function. The port runs on one card, so nothing is reduced
 after the compression: ``launch/train.py --compression`` applies it to the
 step's gradients as the JAX training loop does before its (sharding-induced)
 reduce.

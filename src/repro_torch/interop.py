@@ -44,12 +44,15 @@ def _tensor(a) -> torch.Tensor:
 
 def leaf_of(name: str):
     """``(path, row)`` of the reference leaf that parameter ``name`` is part
-    of: a JAX leaf stacks the layers, so ``layers.<i>.attn.wq`` is row ``i``
-    of ``("layers", "attn", "wq")``; any other name is a whole leaf (row
+    of: a JAX leaf stacks the layers (or the hybrid's blocks, or each side
+    of the encoder-decoder), so ``layers.<i>.attn.wq`` is row ``i`` of
+    ``("layers", "attn", "wq")``, ``blocks.<b>.s3.mixer.A_log`` row ``b``
+    of ``("blocks", "s3", "mixer", "A_log")``, and ``enc_layers.<i>.…`` and
+    ``dec_layers.<i>.…`` likewise; any other name is a whole leaf (row
     ``None``)."""
     path = name.split(".")
-    if path[0] == "layers":
-        return ("layers", *path[2:]), int(path[1])
+    if len(path) > 2 and path[1].isdigit():  # an nn.ModuleList's entry
+        return (path[0], *path[2:]), int(path[1])
     return tuple(path), None
 
 
@@ -101,15 +104,17 @@ def load_reference(module, tree, values=None) -> None:
 
 
 def params_from_reference(params_np, cfg, device="cpu"):
-    """The port's model of ``cfg``'s family (``TransformerLM`` for dense and
-    MoE, ``SSMLM`` for SSM) holding the JAX package's weights.
+    """The port's model of ``cfg``'s family (``TransformerLM`` for dense,
+    MoE and VLM, ``SSMLM`` for SSM, ``HybridLM``, ``EncDecLM``) holding the
+    JAX package's weights.
 
     ``params_np`` is the JAX parameter tree of ``cfg`` with its leaves taken
     to numpy (layers stacked on axis 0). Every leaf lands in the parameter
     of the same path (``layers.<i>.attn.wq`` ← ``layers/attn/wq[i]``,
-    ``layers.<i>.ffn.router`` ← ``layers/ffn/router[i]``,
-    ``layers.<i>.mixer.A_log`` ← ``layers/mixer/A_log[i]``), with its shape
-    and dtype checked; every leaf must be used."""
+    ``blocks.<b>.attn.attn.wq`` ← ``blocks/attn/attn/wq[b]``,
+    ``dec_layers.<i>.cross_attn.wk`` ← ``dec_layers/cross_attn/wk[i]``;
+    ``interop.leaf_of``), with its shape and dtype checked; every leaf must
+    be used."""
     from repro_torch.models.model_zoo import build_module
 
     lm = build_module(cfg, device=device)
@@ -163,9 +168,13 @@ def params_to_reference(module, cfg):
     """The JAX parameter tree of ``cfg`` as numpy from the port's ``module``
     (the inverse of ``params_from_reference``): ``jax.tree.map(jnp.asarray,
     ·)`` of it is what the JAX package's functions take."""
-    if len(module.layers) != cfg.num_layers:
-        raise ValueError(f"{cfg.name}: {len(module.layers)} layers, the config has "
-                         f"{cfg.num_layers}")
+    from repro_torch.models.model_zoo import build_module
+
+    want = build_module(cfg, device="meta")
+    for name, child in module.named_children():
+        if isinstance(child, torch.nn.ModuleList) and len(child) != len(getattr(want, name)):
+            raise ValueError(f"{cfg.name}: {len(child)} {name}, the config has "
+                             f"{len(getattr(want, name))}")
     return _tree_numpy(reference_tree(module))
 
 

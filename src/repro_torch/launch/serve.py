@@ -3,6 +3,11 @@
 Spins up the continuous-batching engine on a (reduced) model and runs a
 synthetic request stream — the minimal "serve a small model with batched
 requests" end-to-end path. Runs on the card unless ``--device cpu``.
+
+The engine feeds token prompts, as the JAX one does: every family but the
+audio one serves (the VLM text-only); ``--arch whisper-tiny`` raises from
+the bundle's prefill, which needs ``frames`` (audio goes through
+``bundle.prefill(frames=…, tokens=…)``).
 """
 from __future__ import annotations
 

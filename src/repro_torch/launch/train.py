@@ -9,6 +9,11 @@ runs on one device, ``cuda`` unless the caller passes ``device="cpu"``;
 the sharding presets and ZeRO come with ``distributed/sharding`` (ROADMAP:
 the rest of ``distributed/``).
 
+The loop feeds token batches (``tokens``, ``labels``), as the JAX one does:
+it trains the dense, MoE, SSM and hybrid families and the VLM without its
+patch prefix; the audio family's loss needs ``frames``, so Whisper trains
+through ``bundle.train_step`` with its own batches.
+
 Checkpoints carry the JAX package's tree — ``params`` with the layers
 stacked on a leading axis and ``opt`` as ``{m, v, step}`` — in its on-disk
 format, so a run saved by either package resumes in the other. As in the

@@ -1,4 +1,5 @@
-"""The model zoo on torch: the dense, MoE and SSM families' serving and
-training paths (ROADMAP lists what is still to port: the other families,
-``moe_ep``, the dry run's input specs)."""
+"""The model zoo on torch: every family's serving and training paths —
+dense, MoE, SSM, the Jamba hybrid, the InternVL2 VLM and the Whisper
+encoder-decoder (ROADMAP lists what is still to port: ``moe_ep``, the dry
+run's input specs)."""
 from repro_torch.models.model_zoo import ModelBundle, build_model  # noqa: F401

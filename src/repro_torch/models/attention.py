@@ -7,8 +7,9 @@ dispatches prefill and the training forward to the flash kernel
 (``repro_torch.kernels.flash_attention``: CUDA on the card, its plain
 version on the CPU; differentiable through its ``autograd.Function``,
 whose backward is the plain version's, as in the JAX package).
-Cross-attention (the JAX function's ``kv=`` argument) comes with the
-encoder-decoder family (ROADMAP: the other families).
+``attention(..., kv=)`` is cross-attention (the encoder-decoder's decoder):
+k and v are projected from ``kv``, without RoPE, and flash runs with the
+queries' offset 0 into the keys.
 """
 from __future__ import annotations
 
@@ -102,11 +103,13 @@ def _promote(o, w):
     return o.to(dt) @ w.to(dt)
 
 
-def attention(x, p, cfg, pos, *, window=GLOBAL_WINDOW, causal=True, pos_kv=None,
+def attention(x, p, cfg, pos, *, kv=None, window=GLOBAL_WINDOW, causal=True, pos_kv=None,
               static_window=True):
     """Full attention sub-layer for prefill and training.
 
-    x: (B, S, D). Returns (out, (k_heads, v_heads)) — the per-head K/V for
+    x: (B, S, D). If ``kv`` (B, Skv, D) is given, computes cross-attention
+    (k/v projected from ``kv``; no RoPE on cross-attention; qk-norm still
+    applies). Returns (out, (k_heads, v_heads)) — the per-head K/V for
     cache writes.
 
     cfg.attn_impl == "flash" dispatches to the flash kernel when the mask is
@@ -117,12 +120,14 @@ def attention(x, p, cfg, pos, *, window=GLOBAL_WINDOW, causal=True, pos_kv=None,
     """
     B, S, _ = x.shape
     q = (x @ p.wq).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (x @ p.wk).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p.wv).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    src = kv if kv is not None else x
+    Skv = src.shape[1]
+    k = (src @ p.wk).reshape(B, Skv, cfg.num_kv_heads, cfg.head_dim)
+    v = (src @ p.wv).reshape(B, Skv, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm)
         k = rmsnorm(k, p.k_norm)
-    if cfg.rope_theta:
+    if kv is None and cfg.rope_theta:
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
     if cfg.attn_impl == "flash" and pos_kv is None and static_window:
@@ -130,10 +135,12 @@ def attention(x, p, cfg, pos, *, window=GLOBAL_WINDOW, causal=True, pos_kv=None,
 
         win = None if (window is None or window >= GLOBAL_WINDOW) else int(window)
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                            causal, win, cfg.attn_logit_softcap, 0).transpose(1, 2)
+                            causal, win, cfg.attn_logit_softcap,
+                            (Skv - S) if kv is None else 0).transpose(1, 2)
         return o.reshape(B, S, cfg.q_dim) @ p.wo, (k, v)
     if pos_kv is None:
-        pos_kv = pos
+        pos_kv = pos if kv is None else torch.arange(
+            Skv, dtype=torch.int32, device=x.device)[None].expand(B, Skv)
     o = attend(q, k, v, pos, pos_kv, window=window, causal=causal,
                cap=cfg.attn_logit_softcap, chunk=cfg.attn_chunk)
     return o.reshape(B, S, cfg.q_dim) @ p.wo, (k, v)

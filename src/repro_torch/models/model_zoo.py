@@ -1,20 +1,23 @@
 """build_model(cfg): one uniform bundle per architecture family (the port
-of ``repro.models.model_zoo``: the dense, MoE and SSM families).
+of ``repro.models.model_zoo``: the dense, MoE, SSM, hybrid, VLM and audio
+families).
 
 Bundle surface (everything the launcher and the serving engine need):
   init(generator)                → params (on the generator's device)
   train_loss(params, batch)      → scalar loss (differentiable)
   train_step(params, opt, batch) → (params, opt, loss); AdamW in place
   init_opt(params)               → the optimizer state ``{m, v, step}``
-  prefill(params, tokens=…, cache_len=None) → (logits, cache)
+  prefill(params, tokens=…, cache_len=None) → (logits, cache); the VLM
+      also takes ``patches=`` (B, P, VIT_DIM), the audio family requires
+      ``frames=`` (B, S_enc, D)
   decode_step(params, cache, tokens)        → (logits, cache)
   make_cache(batch, max_len, device="cuda") → cache dict (zeros)
 
 ``build_module(cfg, device)`` makes a family's module with its weights left
-uninitialised (``interop.params_from_reference`` fills one). The dry run's
+uninitialised (``interop.params_from_reference`` fills one; on the ``meta``
+device it only counts, as ``analytic_param_count`` does). The dry run's
 surface — ``input_specs``, ``abstract_params`` and ``step_for_cell`` —
-comes with ``launch/dryrun`` (ROADMAP: the rest of ``launch/``); the
-hybrid, VLM and audio families come later (ROADMAP: the other families).
+comes with ``launch/dryrun`` (ROADMAP: the rest of ``launch/``).
 """
 from __future__ import annotations
 
@@ -25,8 +28,12 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
+from repro_torch.models.transformer import VIT_DIM  # noqa: F401  (stub InternViT width)
 from repro_torch.optim.adamw import adamw_update, init_opt_state, named_tensors
+
+WHISPER_TRAIN_ENC = 1500  # encoder frames for the train cell
+WHISPER_PREFILL_DEC = 256  # decoder prompt length for the prefill cell
 
 
 @dataclass
@@ -79,35 +86,56 @@ class ModelBundle:
         return init_opt_state(params, getattr(torch, self.cfg.opt_moment_dtype))
 
 
-def _unported(cfg: ArchConfig):
-    return NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP: the other families of the "
-        f"model zoo)")
+def _max_dec_for(cfg):
+    # whisper's learned decoder positions must cover the largest decode cell
+    return 32_768
+
+
+#: whisper's learned encoder positions, as the JAX bundle sizes them
+MAX_ENC = 32_768
 
 
 def build_module(cfg: ArchConfig, device=None):
-    """The family's module on ``device``, weights uninitialised."""
-    if cfg.family in ("dense", "moe"):
+    """The family's module on ``device``, weights uninitialised (the audio
+    family's position tables sized as ``build_model``'s default)."""
+    if cfg.family in ("dense", "moe", "vlm"):
         return transformer.TransformerLM(cfg, device=device)
     if cfg.family == "ssm":
         return ssm.SSMLM(cfg, device=device)
-    raise _unported(cfg)
+    if cfg.family == "hybrid":
+        return hybrid.HybridLM(cfg, device=device)
+    if cfg.family == "audio":
+        return encdec.EncDecLM(cfg, device=device, max_dec=_max_dec_for(cfg), max_enc=MAX_ENC)
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
-def build_model(cfg: ArchConfig) -> ModelBundle:
-    if cfg.family in ("dense", "moe"):
+def _audio_prefill(cfg):
+    def prefill(params, *, tokens, frames=None):
+        if frames is None:
+            raise KeyError(
+                f"'frames': {cfg.name} encodes audio frames (B, S_enc, D) before its "
+                f"decoder prompt; the serve engine feeds token prompts only, so audio goes "
+                f"through bundle.prefill(params, frames=..., tokens=...)")
+        return encdec.encdec_prefill(params, frames, tokens, cfg)
+    return prefill
+
+
+def build_model(cfg: ArchConfig, *, max_dec=None) -> ModelBundle:
+    f = cfg.family
+    if f in ("dense", "moe", "vlm"):
         return ModelBundle(
             cfg=cfg,
             init=functools.partial(transformer.make_lm_params, cfg=cfg),
             train_loss=functools.partial(transformer.lm_train_loss, cfg=cfg),
-            prefill=lambda params, *, tokens, cache_len=None: transformer.lm_prefill(
-                params, tokens, cfg, cache_len=cache_len),
+            prefill=lambda params, *, tokens, cache_len=None, patches=None:
+                transformer.lm_prefill(params, tokens, cfg, cache_len=cache_len,
+                                       patches=patches),
             decode_step=lambda params, cache, tok: transformer.lm_decode_step(
                 params, cache, tok, cfg),
             make_cache=lambda batch, max_len, device="cuda": transformer.make_cache(
                 cfg, batch, max_len, device=device),
         )
-    if cfg.family == "ssm":
+    if f == "ssm":
         return ModelBundle(
             cfg=cfg,
             init=functools.partial(ssm.make_ssm_params, cfg=cfg),
@@ -120,4 +148,51 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
             make_cache=lambda batch, max_len, device="cuda": ssm.make_ssm_cache(
                 cfg, batch, device=device),
         )
-    raise _unported(cfg)
+    if f == "hybrid":
+        return ModelBundle(
+            cfg=cfg,
+            init=functools.partial(hybrid.make_hybrid_params, cfg=cfg),
+            train_loss=functools.partial(hybrid.hybrid_train_loss, cfg=cfg),
+            # a prompt-sized cache, as the JAX bundle's (the engine pads it)
+            prefill=lambda params, *, tokens: hybrid.hybrid_prefill(params, tokens, cfg),
+            decode_step=lambda params, cache, tok: hybrid.hybrid_decode_step(
+                params, cache, tok, cfg),
+            make_cache=lambda batch, max_len, device="cuda": hybrid.make_hybrid_cache(
+                cfg, batch, max_len, device=device),
+        )
+    if f == "audio":
+        md = max_dec or _max_dec_for(cfg)
+        return ModelBundle(
+            cfg=cfg,
+            init=lambda generator: encdec.make_encdec_params(generator, cfg, max_dec=md,
+                                                             max_enc=MAX_ENC),
+            train_loss=functools.partial(encdec.encdec_train_loss, cfg=cfg),
+            prefill=_audio_prefill(cfg),
+            decode_step=lambda params, cache, tok: encdec.encdec_decode_step(
+                params, cache, tok, cfg),
+            make_cache=lambda batch, max_len, device="cuda": encdec.make_encdec_cache(
+                cfg, batch, max_len, cfg.enc_seq, device=device),
+        )
+    raise ValueError(f"unknown family {f!r}")
+
+
+# ---------------------------------------------------------------------------
+# analytic parameter counts (MODEL_FLOPS = 6·N·D)
+# ---------------------------------------------------------------------------
+
+
+def analytic_param_count(cfg: ArchConfig, active_only: bool = False) -> int:
+    """The parameters of ``cfg``'s model, counted on the ``meta`` device
+    (no storage); ``active_only`` subtracts the experts a token does not
+    use (k of E in each MoE layer, the hybrid's MoE slots included)."""
+    total = sum(p.numel() for p in build_module(cfg, device="meta").parameters())
+    if active_only and cfg.is_moe:
+        E, K, D, F = cfg.num_experts, cfg.experts_per_token, cfg.d_model, cfg.d_ff
+        per_moe_layer = E * 3 * D * F
+        if cfg.family == "hybrid":
+            n_moe = (cfg.num_layers // cfg.attn_period) * sum(
+                1 for i in range(1, hybrid.N_SLOTS) if i % cfg.moe_period == 1)
+        else:
+            n_moe = sum(1 for i in range(cfg.num_layers) if i % cfg.moe_period == 0)
+        total -= int(n_moe * per_moe_layer * (1 - K / E))
+    return total

@@ -1,11 +1,11 @@
 """Decoder-only transformer LM, dense or MoE (the port of
 ``repro.models.transformer``): GQA (+qk-norm), RoPE, sliding-window and
-local:global window patterns, logit soft-caps, MoE every layer (mixtral).
+local:global window patterns, logit soft-caps, MoE every layer (mixtral),
+VLM patch prefix (internvl2).
 
 The JAX package stacks layers on a leading axis and runs them with
 ``lax.scan``; here the layers are an ``nn.ModuleList`` and the scan is a
-loop over it. The VLM patch prefix comes with its family (ROADMAP: the
-other families). ``lm_forward``/``lm_train_loss`` are the training path
+loop over it. ``lm_forward``/``lm_train_loss`` are the training path
 (differentiable, each layer under ``_remat``'s checkpoint policy);
 prefill and decode run under ``torch.no_grad()``: the serving path.
 """
@@ -26,7 +26,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import MLP, Norm, apply_norm, embed_init, lm_loss, mlp, weight
 from repro_torch.models.moe import MoE, moe_apply
 
-_TODO = "is not ported yet (ROADMAP: the other families of the model zoo)"
+#: width of the (stub) InternViT patch embeddings the VLM projects
+VIT_DIM = 1024
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -55,14 +56,13 @@ def _ffn(h, lp, cfg):
 class TransformerLM(nn.Module):
     """``embed`` (V, D), ``layers``, ``final_norm`` and, unless tied,
     ``lm_head`` (D, V) — the JAX parameter tree with its layer axis turned
-    into a list. With a ``generator`` every weight is drawn on its device,
+    into a list, and ``vit_proj`` (VIT_DIM, D) for the VLM's patch prefix.
+    With a ``generator`` every weight is drawn on its device,
     tensor by tensor in ``param_dtype`` (a full-width model is never held
     in f32); without one the weights are left uninitialised on ``device``."""
 
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
-        if cfg.frontend == "vit_patch":
-            raise NotImplementedError(f"the VLM patch frontend {_TODO}")
         dt = _dtype(cfg)
         if generator is not None:
             device = generator.device
@@ -73,6 +73,8 @@ class TransformerLM(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = weight((cfg.d_model, cfg.vocab_size), dt, device, generator,
                                   embed_init)
+        if cfg.frontend == "vit_patch":
+            self.vit_proj = weight((VIT_DIM, cfg.d_model), dt, device, generator, embed_init)
 
     @property
     def device(self) -> torch.device:
@@ -102,9 +104,11 @@ def layer_windows(cfg) -> np.ndarray:
 
 
 def embed_tokens(params, tokens, cfg, patches=None):
-    if patches is not None:
-        raise NotImplementedError(f"the VLM patch prefix {_TODO}")
-    return params.embed[tokens.long()]
+    x = params.embed[tokens.long()]
+    if patches is not None:  # VLM: project + prepend patch embeddings
+        pe = patches.to(x.dtype) @ params.vit_proj
+        x = torch.cat([pe, x], dim=1)
+    return x
 
 
 #: the products ``remat="dots"`` keeps: matmuls without batch dimensions
@@ -145,8 +149,9 @@ def _remat(f, cfg):
 
 
 def lm_forward(params, tokens, cfg, patches=None):
-    """tokens: (B, S) → (h (B, S, D), aux_loss), differentiable. Flash stays
-    eligible by ``lm_prefill``'s rule: every layer has one window."""
+    """tokens: (B, S_text) → (h (B, S, D), aux_loss), differentiable; S
+    includes the ``patches`` prefix. Flash stays eligible by
+    ``lm_prefill``'s rule: every layer has one window."""
     x = embed_tokens(params, tokens, cfg, patches)
     B, S, _ = x.shape
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
@@ -174,15 +179,23 @@ def lm_forward(params, tokens, cfg, patches=None):
 
 def lm_train_loss(params, batch, cfg):
     """The mean next-token cross-entropy of ``batch`` (``tokens``,
-    ``labels``; labels below 0 are masked) plus 0.01 x the MoE aux loss."""
-    h, aux = lm_forward(params, batch["tokens"], cfg, batch.get("patches"))
-    loss = lm_loss(h, head_matrix(params, cfg), batch["labels"], cfg.loss_chunk)
+    ``labels``; labels below 0 are masked; the VLM's ``patches`` prefix
+    takes no loss) plus 0.01 x the MoE aux loss."""
+    patches = batch.get("patches")
+    h, aux = lm_forward(params, batch["tokens"], cfg, patches)
+    labels = batch["labels"]
+    if patches is not None:  # no loss on the patch prefix
+        pad = torch.full((labels.shape[0], patches.shape[1]), -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    loss = lm_loss(h, head_matrix(params, cfg), labels, cfg.loss_chunk)
     return loss + 0.01 * aux
 
 
 @torch.no_grad()
 def lm_prefill(params, tokens, cfg, cache_len=None, patches=None):
-    """Run the prompt, build KV caches sized ``cache_len`` (≥ S).
+    """Run the prompt (after the ``patches`` prefix, if any), build KV
+    caches sized ``cache_len`` (≥ S, the prefix included).
 
     Returns (last-position logits (B, V), cache dict): ``k``/``v``
     (L, B, Smax, K, hd) in the activations' dtype, zero beyond S, and

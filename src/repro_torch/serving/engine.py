@@ -1,7 +1,8 @@
 """Continuous-batching serve engine (the port of ``repro.serving.engine``).
 
 Fixed-slot design: the cache is a (slots, …) slab (KV rows for the
-transformers, the O(1) recurrent state for the SSM); new requests are
+transformers, the O(1) recurrent state for the SSM, both for the hybrid);
+new requests are
 admitted into free slots via single-row prefill, every engine step runs ONE
 batched decode over all live slots, finished requests retire and free their
 slot. A request reaching its token budget retires (with a truncation flag
@@ -11,6 +12,14 @@ The slab lives on the model's device and is updated in place: prefill
 caches are spliced into their slot, and a transformer's decode writes one
 KV row per slot (the SSM's decode returns a new state, as in the JAX
 package).
+
+The engine feeds token prompts, as the JAX engine does: the VLM is served
+text-only, and the audio family's prefill, which needs ``frames``, raises;
+both take their patches or frames through ``bundle.prefill`` itself. Its
+``_splice`` writes each cache leaf on that leaf's batch axis — the
+hybrid's ``conv``/``state`` are ``(n_blocks, 7, B, …)`` — where the JAX
+``_splice`` writes every leaf on axis 1 and so lands a hybrid request's
+recurrent state in slot 0.
 """
 from __future__ import annotations
 
@@ -123,32 +132,52 @@ class ServeEngine:
         return out
 
 
+def _batch_axis(name, slab, single, slots: int, cache_len: int) -> int:
+    """The axis of cache leaf ``name`` that indexes the slots: the one axis
+    where the slab has ``slots`` entries and the request's cache 1, with
+    every other axis equal but, for a KV leaf, the one right after it (the
+    slab's ``cache_len`` positions against the request's Lp). Raises where
+    the shapes name no such axis or more than one."""
+    found = []
+    for a in range(slab.ndim if slab.ndim == single.ndim else 0):
+        if slab.shape[a] != slots or single.shape[a] != 1:
+            continue
+        differ = [i for i in range(slab.ndim) if i != a and slab.shape[i] != single.shape[i]]
+        if not differ or (differ == [a + 1] and slab.shape[a + 1] == cache_len):
+            found.append(a)
+    if len(found) != 1:
+        raise ValueError(f"cache leaf {name!r}: request {tuple(single.shape)} against the slab "
+                         f"{tuple(slab.shape)} of {slots} slots names "
+                         f"{'no' if not found else 'more than one'} batch axis")
+    return found[0]
+
+
 def _splice(cache, cache1, slot: int, cache_len: int):
     """Write a request cache (batch 1) into slot ``slot`` of the slab (batch
-    S), in place, casting to the slab's dtype (bf16 even for an f32 model).
-    Returns the slab.
+    ``slots``, the length of ``pos``), in place, casting to the slab's dtype
+    (bf16 even for an f32 model). Returns the slab.
 
-    Per-layer leaves are stacked ``(L, B, …)``. A leaf whose dim 2 is the
-    slab's length (a KV cache: ``(L, B, cache_len, …)`` against the
-    request's ``(L, 1, Lp, …)``) takes the request's Lp rows and is zeroed
-    beyond them, as the JAX package pads with zeros. A state-like leaf (the
-    SSM's conv tail ``(L, B, width-1, ch)`` and state ``(L, B, H, P, N)``)
-    has the same shape in both and is copied whole into its slot, as the
-    JAX ``_splice`` copies it."""
+    Each leaf is written on its batch axis (``_batch_axis``): axis 0 of
+    ``pos``, axis 1 of the per-layer stacks ``(L, B, …)``, axis 2 of the
+    hybrid's mixer state ``(n_blocks, 7, B, …)``. A KV leaf (``(L, B,
+    cache_len, …)`` against the request's ``(L, 1, Lp, …)``) takes the
+    request's Lp rows and is zeroed beyond them, as the JAX package pads
+    with zeros; a state-like leaf (a conv tail, an SSM state) has the same
+    shape in both and is copied whole into its slot."""
+    slots = cache["pos"].shape[0]
     for name, slab in cache.items():
         single = cache1[name]
-        if slab.ndim == 1:  # pos (B,)
-            slab[slot] = single[0].to(slab.dtype)
-        elif slab.shape[2] == cache_len and single.shape[2] != cache_len:
-            Lp = single.shape[2]
-            if Lp > cache_len:
-                raise ValueError(f"prompt cache of {Lp} positions exceeds cache_len "
-                                 f"{cache_len}")
-            slab[:, slot, :Lp] = single[:, 0].to(slab.dtype)
-            slab[:, slot, Lp:] = 0
-        elif slab.shape[2:] == single.shape[2:]:
-            slab[:, slot] = single[:, 0].to(slab.dtype)
-        else:
-            raise ValueError(f"cache leaf {name!r}: request {tuple(single.shape)} does not "
-                             f"fit the slab {tuple(slab.shape)}")
+        if slots == 1 and slab.shape == single.shape:
+            slab.copy_(single)
+            continue
+        a = _batch_axis(name, slab, single, slots, cache_len)
+        dst, src = slab.select(a, slot), single.select(a, 0)
+        if dst.shape == src.shape:
+            dst.copy_(src)
+            continue
+        Lp = src.shape[a]  # the KV leaf's length axis, now at a
+        if Lp > cache_len:
+            raise ValueError(f"prompt cache of {Lp} positions exceeds cache_len {cache_len}")
+        dst.narrow(a, 0, Lp).copy_(src)
+        dst.narrow(a, Lp, cache_len - Lp).zero_()
     return cache

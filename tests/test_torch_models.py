@@ -19,15 +19,16 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as j_config  # noqa: E402
+from repro.configs import list_configs as j_list_configs  # noqa: E402
 from repro.models import attention as j_attn  # noqa: E402
 from repro.models import build_model as j_build  # noqa: E402
 from repro.models import layers as j_layers  # noqa: E402
 from repro_torch.configs import get_config as t_config  # noqa: E402
 from repro_torch.configs import list_configs  # noqa: E402
-from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.interop import _tensor, params_from_reference  # noqa: E402
 from repro_torch.models import attention as t_attn  # noqa: E402
 from repro_torch.models import build_model as t_build  # noqa: E402
+from repro_torch.models.model_zoo import analytic_param_count, build_module  # noqa: E402
 from repro_torch.models import layers as t_layers  # noqa: E402
 from repro_torch.models import transformer as t_tf  # noqa: E402
 
@@ -67,7 +68,8 @@ def _models(name, **over):
 
 
 @pytest.mark.parametrize("name", ["qwen3-14b", "ignis-tiny", "ignis-100m", "mamba2-780m",
-                                  "mixtral-8x7b"])
+                                  "mixtral-8x7b", "jamba-1.5-large-398b", "internvl2-1b",
+                                  "whisper-tiny"])
 def test_configs_copy_the_reference(name):
     j, t = dataclasses.asdict(j_config(name)), dataclasses.asdict(t_config(name))
     j.pop("source"), t.pop("source")
@@ -78,29 +80,43 @@ def test_configs_copy_the_reference(name):
 
 def test_qwen3_14b_cites_its_published_config():
     assert t_config("qwen3-14b").source == "[hf:Qwen/Qwen3-14B; hf]"
-    assert list_configs() == ["gemma3-4b", "ignis-100m", "ignis-tiny", "mamba2-780m",
-                              "mixtral-8x7b", "olmo-1b", "phi3.5-moe-42b-a6.6b", "qwen3-14b",
-                              "yi-9b"]
+    assert list_configs() == j_list_configs() == [
+        "gemma3-4b", "ignis-100m", "ignis-tiny", "internvl2-1b", "jamba-1.5-large-398b",
+        "mamba2-780m", "mixtral-8x7b", "olmo-1b", "phi3.5-moe-42b-a6.6b", "qwen3-14b",
+        "whisper-tiny", "yi-9b"]
     assert t_config("mamba2-780m").source == j_config("mamba2-780m").source
     assert t_config("mixtral-8x7b").source == j_config("mixtral-8x7b").source
 
 
 def test_unported_architectures_and_families_raise():
-    """The hybrid, audio and VLM families are still to port; the SSM and MoE
-    families build (an MoE ``ignis-tiny`` too)."""
-    with pytest.raises(KeyError, match="ROADMAP: the other families"):
-        t_config("whisper-tiny")
-    for name in ("jamba-1.5-large-398b", "whisper-tiny", "internvl2-1b"):
-        cfg = ArchConfig(**dataclasses.asdict(j_config(name)))
-        with pytest.raises(NotImplementedError, match="ROADMAP: the other families"):
-            t_build(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP: the other families"):
-        t_tf.TransformerLM(ArchConfig(**dataclasses.asdict(j_config("internvl2-1b").reduced()
-                                                           .with_overrides(family="dense"))),
-                           device="meta")
+    """No architecture is left unported: every JAX config has a port config
+    with the same fields and ``source`` (but qwen3-14b's citation, above),
+    and each builds its family's module (on the ``meta`` device: no
+    storage), the hybrid, VLM and audio families included; the MoE
+    ``ignis-tiny`` builds too. An unknown family still raises."""
+    for name in j_list_configs():
+        j, t = dataclasses.asdict(j_config(name)), dataclasses.asdict(t_config(name))
+        if name == "qwen3-14b":
+            j.pop("source"), t.pop("source")
+        assert j == t, name
+        module = build_module(t_config(name), device="meta")
+        assert sum(p.numel() for p in module.parameters()) > 0, name
+    with pytest.raises(ValueError, match="unknown family"):
+        build_module(t_config("ignis-tiny").with_overrides(family="diffusion"), device="meta")
     moe = t_config("ignis-tiny").with_overrides(num_experts=4, experts_per_token=2)
     lm = t_build(moe).init(torch.Generator().manual_seed(0))
     assert tuple(lm.layers[0].ffn.w_gate.shape) == (4, moe.d_model, moe.d_ff)
+
+
+@pytest.mark.parametrize("name", j_list_configs())
+def test_analytic_param_counts_equal_jax(name):
+    """``analytic_param_count`` (total and active) and the config's
+    ``param_count``/``active_param_count`` equal the JAX package's exactly,
+    at full size."""
+    j, t = j_config(name), t_config(name)
+    assert t.param_count() == analytic_param_count(t) == j.param_count()
+    assert t.active_param_count() == analytic_param_count(t, active_only=True) \
+        == j.active_param_count()
 
 
 # ---------------------------------------------------------------------------
