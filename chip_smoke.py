@@ -10,7 +10,9 @@ streaming ingestion), then seven models of three families served through
 Gemma3-4B, Phi-3.5-MoE), then the other three families (Jamba-1.5-Large,
 InternVL2-1B, Whisper-tiny), then the training path (the paper's hybrid
 training app, and OLMo-1B, Mamba2-780M, Mixtral-8x7B, InternVL2-1B,
-Whisper-tiny and Jamba's gradient at full width) —
+Whisper-tiny and Jamba's gradient at full width), then the rest of
+``distributed/`` on meshes of virtual ranks (expert-parallel Phi-3.5-MoE,
+OLMo-1B as pipeline stages, ``restore_elastic`` of its train state) —
 holds every hand-written kernel against its plain torch version at the
 shapes those paths gave it, and reports. Run from the repository root:
 
@@ -226,7 +228,31 @@ non-zero):
              stacks are chaotic), each kernel's forward device ms against
              its plain backward's, and checkpoint save and restore ms; the
              kernels line gains each model kernel's ``train_launches`` and
-             ``family_launches`` (the phases of 7 and their train runs).
+             ``family_launches`` (the phases of 7 and their train runs);
+9. distributed — after the train phase's memory is released, on meshes
+             of virtual ranks of the card (``launch.mesh``): Phi-3.5-MoE at
+             full width and ``PHI_LAYERS`` layers with ``moe_ep=True``
+             under ``make_local_mesh(8, 1)`` (E_loc = 2), one prefill of
+             ``EP_PREFILL`` = 8 x 2048 tokens (T_loc = 2048, C = 320 per
+             source and expert at 1.25): EP taken in every layer, the router
+             launched once per data rank in each (24 x 8) and flash once a
+             layer, the router at each call's own logits against its plain
+             version, each layer's EP output at its own inputs against EP
+             with the plain router, EP against the flat ``moe_ffn_bsd`` at
+             capacity factor 8 on layer 0's inputs, finite logits; reports
+             the EP prefill against the flat one, the assignments dropped by
+             each at 1.25 and each rank's parameter bytes by
+             ``param_specs``. OLMo-1B whole as ``PIPE_STAGES`` = 4 stages of
+             4 layers under ``make_pp_mesh(4)``, ``PIPE_MICRO`` = 8
+             microbatches of 1 x 2048: ``pipeline_apply`` against
+             ``reference_apply`` bit for bit, flash launched 8 x 16 times in
+             each, both timed. OLMo-1B's params and AdamW state after one
+             ``bundle.train_step``, saved, then ``restore_elastic`` of the
+             params under (4, 2) and (5, 1) with ``fsdp_tp_zero1``
+             (``ELASTIC_RESTORES``): bit for bit, a wrong shape rejected;
+             save and restore ms and each placement's bytes a rank. The
+             kernels line gains ``ep_launches`` (the router) and
+             ``pipeline_launches`` (flash).
 
 The last two lines are the ``kernels`` JSON object (with the card's name and
 power limit just before it) and ``{"ok": true, "device": {...}}``.
@@ -4622,6 +4648,416 @@ def train_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: distributed — expert-parallel MoE, the pipeline schedule and
+# restore_elastic on meshes of virtual ranks
+# ---------------------------------------------------------------------------
+
+#: Phi-3.5-MoE's EP prefill, (batch, tokens), on a (data, model) mesh of
+#: ``EP_MESH``: T_loc = 2048 tokens a data rank, E_loc = 2 experts a rank,
+#: so C = int(1.25 x 2048 x 2 / 16) = 320 per (source rank, expert)
+EP_PREFILL = (8, 2048)
+EP_MESH = (8, 1)
+#: the no-drop check (capacity factor 8) runs on layer 0's own inputs cut
+#: to this many positions a row (T_loc = 1024, so C = 1024 = T_loc: no
+#: assignment can drop): at 2048 its (16, 16384, 6400) bf16 products, three
+#: of them, do not fit beside 24 layers' weights
+EP_NODROP_POSITIONS = 1024
+#: OLMo-1B whole, its 16 layers as ``PIPE_STAGES`` stages, ``PIPE_MICRO``
+#: microbatches of 1 x ``PIPE_SEQ`` tokens
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 8, 2048
+#: restore_elastic: OLMo-1B's params and AdamW state after one
+#: ``bundle.train_step`` at 1 x 2048 (11.8 GB), saved under
+#: ``ELASTIC_SAVE_MESH`` (the config's own dp preset), the params restored
+#: under each (mesh, preset): with the moments the phase took over a minute
+#: (a whole restore 21.6–26.9 s on an NVIDIA H100 80GB HBM3 at 700 W;
+#: PERF.md §4), so the moments' placement is reckoned by ``opt_specs``
+ELASTIC_SAVE_MESH = (8, 1)
+ELASTIC_RESTORES = (((4, 2), "fsdp_tp_zero1"), ((5, 1), "fsdp_tp_zero1"))
+
+
+def _drops(routes):
+    """Assignments a router call's keep flags drop."""
+    return sum(int((~out[3]).sum()) for *_a, out in routes)
+
+
+def dist_ep(gpu):
+    """Phi-3.5-MoE at full width and ``PHI_LAYERS`` layers, ``moe_ep=True``,
+    flash, random bf16 weights: one prefill of ``EP_PREFILL`` under
+    ``make_local_mesh(*EP_MESH)``. Checks: EP taken in every layer, the
+    router launched once per data rank in each (and flash once a layer, no
+    other kernel), the router at each of its own logits against
+    ``moe_route_ref`` (ids, ordinals, keep bit for bit, weights within
+    ``MOE_W_ATOL``), each layer's EP output at its own inputs against the
+    same EP function with the router's plain version (``MOE_REL_L2``), the
+    EP layer at capacity factor 8 against the flat ``moe_ffn_bsd`` on layer
+    0's inputs (``MOE_REL_L2`` over the tokens both route alike; the tokens
+    routed otherwise, by the router products' roundings at other row
+    counts, counted and held under 0.1 %), finite logits. Reports the EP
+    prefill against the flat one, the assignments dropped, and each rank's
+    parameter bytes by ``param_specs``."""
+    import gc
+
+    import torch
+
+    import repro_torch.kernels.moe_route as pkg
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import param_specs, rank_bytes, to_named
+    from repro_torch.interop import reference_tree
+    from repro_torch.kernels.moe_route.ref import moe_route_ref
+    from repro_torch.launch.mesh import make_local_mesh, use_mesh
+    from repro_torch.models import build_model, moe_ep
+    from repro_torch.models.moe import capacity_for, moe_ffn_bsd
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config("phi3.5-moe-42b-a6.6b")
+    cfg = full.with_overrides(num_layers=PHI_LAYERS, attn_impl="flash", moe_ep=True)
+    bundle = build_model(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    mesh = make_local_mesh(*EP_MESH)
+    B, S = EP_PREFILL
+    p, E, L = mesh.shape["data"], cfg.num_experts, cfg.num_layers
+    T_loc = B // p * S
+    C = moe_ep.capacity_ep(cfg, T_loc)
+    tree = reference_tree(params, leaf=lambda t: t.to("meta"))
+    per_rank = rank_bytes(to_named(param_specs(tree, cfg, mesh), mesh, tree))
+    whole = sum(t.numel() * t.element_size() for t in params.parameters())
+    log(f"distributed: ep: {cfg.name} at full width, {L} of its {full.num_layers} layers, "
+        f"{E} experts top-{cfg.experts_per_token}, preset {cfg.sharding_preset}, on {mesh}: "
+        f"E_loc {E // p}, T_loc {T_loc}, C {C} per (source, expert) at capacity factor "
+        f"{cfg.capacity_factor}; parameters {whole} B whole, {per_rank} B a rank by "
+        f"param_specs; initialised in {time.perf_counter() - t0:.1f} s ({gpu})")
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32, device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+
+    # each EP layer, as it runs, against the same function with the router's
+    # plain version at its own inputs (the plain router launches nothing);
+    # the flat path's drops at the same inputs; layer 0's inputs kept
+    routes, first = [], []
+    held = {"layers": 0, "rel": 0.0, "abs": 0.0, "aux": 0.0, "flat_drop": 0}
+    real_ep, real_route = moe_ep.moe_ffn_bsd_ep, pkg.moe_route
+
+    def plain(logits, k, capacity, *a):
+        return moe_route_ref(logits, k, capacity)
+
+    def ep_held(x, prm, c, axis="data"):
+        y, aux = real_ep(x, prm, c, axis)
+        with _swapped(pkg, "moe_route", plain):
+            yp, auxp = real_ep(x, prm, c, axis)
+        held["layers"] += 1
+        held["rel"] = max(held["rel"], rel_l2(y, yp))
+        held["abs"] = max(held["abs"], max_err(y, yp))
+        held["aux"] = max(held["aux"], abs(float(aux) - float(auxp)))
+        lg = x.reshape(-1, x.shape[-1]).float() @ prm.router
+        held["flat_drop"] += int((~moe_route_ref(lg, c.experts_per_token,
+                                                 capacity_for(c, lg.shape[0]))[3]).sum())
+        if not first:
+            first.append((x[:, :EP_NODROP_POSITIONS].clone(), prm))
+        return y, aux
+
+    def route_recording(logits, k, capacity, *a):
+        out = real_route(logits, k, capacity, *a)
+        routes.append((logits, k, capacity, out))
+        return out
+
+    K.reset_launches()
+    with use_mesh(mesh), _swapped(moe_ep, "moe_ffn_bsd_ep", ep_held), \
+            _swapped(pkg, "moe_route", route_recording):
+        logits, cache = bundle.prefill(params, tokens=tokens)
+    torch.cuda.synchronize()
+    fns = K.launch_counters()
+    launches = {k: fn.launches for k, fn in fns.items()}
+    want = {k: 0 for k in fns}
+    want.update(moe_route=L * p, flash_attention=L)
+    log(f"distributed: ep: one prefill of {B} x {S} tokens: EP layers {held['layers']} of "
+        f"{L}, router calls {len(routes)} (geometries "
+        f"{sorted({(tuple(r[0].shape), r[1], r[2]) for r in routes})}), launches {launches} "
+        f"(expected {want})")
+    check(held["layers"] == L, f"distributed: ep: EP taken in {held['layers']} of {L} layers")
+    check(launches == want, f"distributed: ep: launches {launches}, expected {want}")
+    check(fns["flash_attention"].launches_by_variant == {"wgmma": L},
+          f"distributed: ep: flash routes {fns['flash_attention'].launches_by_variant}")
+    check(all(tuple(r[0].shape) == (T_loc, E) and r[2] == C for r in routes),
+          "distributed: ep: a router call not at one rank's (T_loc, E) and C")
+    check(bool(torch.isfinite(logits).all()), "distributed: ep: non-finite logits")
+    del cache
+
+    worst_w = 0.0
+    for i, (lg, k, c, out) in enumerate(routes):
+        ref = moe_route_ref(lg, k, c)
+        for a, b, nm in zip(out[1:], ref[1:], ("idx", "pos", "keep")):
+            exact(a, b, f"distributed: ep: moe_route at call {i} {nm}")
+        worst_w = max(worst_w, max_err(out[0], ref[0]))
+    check(worst_w <= MOE_W_ATOL, f"distributed: ep: router weights max abs err {worst_w}")
+    log(f"distributed: ep: the router at each of its {len(routes)} calls' own logits: ids, "
+        f"ordinals, keep bit for bit with moe_route_ref, weights max abs err {worst_w}; each "
+        f"layer's EP output at its own inputs against EP with the plain router: relative L2 "
+        f"at most {held['rel']:.3e}, max abs err {held['abs']}, aux {held['aux']} "
+        f"(tolerance {MOE_REL_L2})")
+    check(held["rel"] <= MOE_REL_L2 and held["aux"] <= 1e-6,
+          f"distributed: ep: EP through the kernel differs from EP with the plain router "
+          f"{held}")
+    ep_drop, flat_drop = _drops(routes), held["flat_drop"]
+    n_assign = L * B * S * cfg.experts_per_token
+
+    # no drops (capacity factor 8): EP against the flat path on layer 0's inputs
+    x0, p0 = first[0]
+    del routes, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg8 = cfg.with_overrides(capacity_factor=8.0)
+    seen = {"ep": [], "flat": []}
+
+    def tagged(tag):
+        def route(logits, k, capacity, *a):
+            out = real_route(logits, k, capacity, *a)
+            seen[tag].append(out)
+            return out
+        return route
+
+    with torch.no_grad():
+        with use_mesh(mesh), _swapped(pkg, "moe_route", tagged("ep")):
+            y_ep, _ = moe_ep.moe_ffn_bsd_ep(x0, p0, cfg8)
+        with _swapped(pkg, "moe_route", tagged("flat")):
+            y_flat, _ = moe_ffn_bsd(x0, p0, cfg8)
+    ids_ep = torch.cat([o[1] for o in seen["ep"]]).sort(-1).values
+    ids_flat = seen["flat"][0][1].sort(-1).values
+    alike = (ids_ep == ids_flat).all(-1)
+    moved = int((~alike).sum())
+    drops8 = _drops([(None, o) for o in seen["ep"]]), _drops([(None, o) for o in seen["flat"]])
+    y_ep, y_flat = y_ep.reshape(-1, y_ep.shape[-1]), y_flat.reshape(-1, y_flat.shape[-1])
+    rel8, err8 = rel_l2(y_ep[alike], y_flat[alike]), max_err(y_ep[alike], y_flat[alike])
+    log(f"distributed: ep: capacity factor 8 on layer 0's inputs ({B} x "
+        f"{EP_NODROP_POSITIONS}): EP against the flat moe_ffn_bsd: dropped {drops8} "
+        f"(EP, flat), tokens routed otherwise {moved} of {alike.numel()}, over the rest "
+        f"relative L2 {rel8:.3e}, max abs err {err8} (tolerance {MOE_REL_L2})")
+    check(drops8 == (0, 0), f"distributed: ep: drops at capacity factor 8: {drops8}")
+    check(moved * 1000 <= alike.numel() and rel8 <= MOE_REL_L2,
+          f"distributed: ep: EP and the flat path differ at no drops: moved {moved}, "
+          f"relative L2 {rel8}")
+    del x0, y_ep, y_flat, seen
+
+    with torch.no_grad():
+        with use_mesh(mesh):
+            ep_ms = time_ms(lambda: bundle.prefill(params, tokens=tokens), 3)
+        flat_ms = time_ms(lambda: bundle.prefill(params, tokens=tokens), 3)
+        with use_mesh(mesh):
+            ep_ms2 = time_ms(lambda: bundle.prefill(params, tokens=tokens), 3)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"distributed: ep: prefill of {B} x {S} tokens (CUDA events, 3 calls each, EP, flat, "
+        f"EP): EP {ep_ms:.3f} ms and {ep_ms2:.3f} ms, flat {flat_ms:.3f} ms "
+        f"({B * S / ep_ms * 1e3:.0f} and {B * S / flat_ms * 1e3:.0f} tokens/s); assignments "
+        f"dropped at capacity factor {cfg.capacity_factor} on the EP run's layer inputs: EP "
+        f"{ep_drop}, flat {flat_drop} of {n_assign}; peak max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB ({gpu})")
+    del params, bundle, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ep_ms=[ep_ms, ep_ms2], flat_ms=flat_ms, ep_dropped=ep_drop,
+                flat_dropped=flat_drop, assignments=n_assign, rank_param_bytes=per_rank,
+                param_bytes=whole, peak_gib=peak / 2**30, router_w_err=worst_w,
+                layer_rel_l2=held["rel"], nodrop_rel_l2=rel8, nodrop_moved=moved)
+
+
+def olmo_stage_fn(cfg):
+    """One pipeline stage of a dense transformer: its layers (an
+    ``nn.ModuleList``) in order, as ``transformer.lm_prefill`` runs them."""
+    import torch
+
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import apply_norm, mlp
+    from repro_torch.models.transformer import layer_windows
+
+    window = int(layer_windows(cfg)[0])
+
+    def fn(stage, x):
+        B, S, _ = x.shape
+        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        for lp in stage:
+            a, _ = attn.attention(apply_norm(x, lp.ln1, cfg.norm_type), lp.attn, cfg, pos,
+                                  window=window, static_window=True)
+            x = x + a
+            x = x + mlp(apply_norm(x, lp.ln2, cfg.norm_type), lp.ffn)
+        return x
+
+    return fn
+
+
+def dist_pipeline(gpu):
+    """OLMo-1B whole (16 layers, flash, random bf16 weights) as
+    ``PIPE_STAGES`` stages under ``make_pp_mesh(PIPE_STAGES)``,
+    ``PIPE_MICRO`` microbatches of 1 x ``PIPE_SEQ``: ``pipeline_apply``
+    against ``reference_apply`` bit for bit (the same kernels on the same
+    inputs in the same order: every flash call and product has the
+    microbatch's shape), flash launched once a layer and microbatch in each
+    (the bubble ticks run no stage), finite logits; both timed."""
+    import gc
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import pipeline_apply, reference_apply
+    from repro_torch.launch.mesh import make_pp_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.transformer import embed_tokens, head_matrix
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("olmo-1b").with_overrides(attn_impl="flash")
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    L, S_, M = cfg.num_layers, PIPE_STAGES, PIPE_MICRO
+    per = L // S_
+    stages = torch.nn.ModuleList(torch.nn.ModuleList(params.layers[s * per:(s + 1) * per])
+                                 for s in range(S_))
+    mesh = make_pp_mesh(S_)
+    fn = olmo_stage_fn(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (M, 1, PIPE_SEQ), dtype=torch.int32,
+                           device="cuda", generator=torch.Generator(device="cuda").manual_seed(2))
+    counts = {}
+    with torch.no_grad():
+        x = torch.stack([embed_tokens(params, t, cfg) for t in tokens])
+        for label, run in (("pipeline", lambda: pipeline_apply(stages, x, fn, mesh)),
+                           ("reference", lambda: reference_apply(stages, x, fn))):
+            K.reset_launches()
+            out = run()
+            torch.cuda.synchronize()
+            counts[label] = ({k: f.launches for k, f in K.launch_counters().items()}, out)
+        (got_n, got), (ref_n, ref) = counts["pipeline"], counts["reference"]
+        want = {k: 0 for k in got_n}
+        want["flash_attention"] = M * L
+        h = apply_norm(got[:, 0, -1], params.final_norm, cfg.norm_type)
+        logits = h @ head_matrix(params, cfg)
+        pipe_ms = time_ms(lambda: pipeline_apply(stages, x, fn, mesh), 2)
+        ref_ms = time_ms(lambda: reference_apply(stages, x, fn), 2)
+    same = torch.equal(got, ref)
+    log(f"distributed: pipeline: {cfg.name} whole ({L} layers, flash) as {S_} stages of "
+        f"{per} on {mesh}, {M} microbatches of 1 x {PIPE_SEQ}: pipeline_apply against "
+        f"reference_apply bit for bit {same} (max abs err {max_err(got, ref)}); launches "
+        f"pipeline {got_n}, reference {ref_n} (expected {want}); pipeline {pipe_ms:.3f} ms, "
+        f"reference {ref_ms:.3f} ms (CUDA events, 2 calls each after one) ({gpu})")
+    check(same, "distributed: pipeline: pipeline_apply differs from reference_apply")
+    check(got_n == want and ref_n == want,
+          f"distributed: pipeline: launches {got_n} and {ref_n}, expected {want}")
+    check(bool(torch.isfinite(logits).all()), "distributed: pipeline: non-finite logits")
+    del params, bundle, stages, x, got, ref, counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=got_n, ref_launches=ref_n, pipeline_ms=pipe_ms, reference_ms=ref_ms)
+
+
+def dist_elastic(gpu):
+    """OLMo-1B's params and AdamW state after one ``bundle.train_step`` at 1 x
+    2048, saved (placed under ``ELASTIC_SAVE_MESH``), then the params
+    restored by ``restore_elastic`` under each of ``ELASTIC_RESTORES``: every
+    leaf back bit for bit, a target of a wrong shape rejected. Reports save
+    and restore ms and each placement's bytes a rank of params and moments
+    (the moments' by ``opt_specs``)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import save
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import synthetic_batches
+    from repro_torch.distributed.elastic import restore_elastic
+    from repro_torch.core import tree
+    from repro_torch.distributed.sharding import opt_specs, param_specs, rank_bytes, to_named
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import checkpoint_tree
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("olmo-1b").with_overrides(attn_impl="flash")
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    opt = bundle.init_opt(params)
+    hb = next(synthetic_batches(cfg.vocab_size, 1, 2048, 0))
+    params, opt, loss = bundle.train_step(
+        params, opt, {k: torch.as_tensor(v, device="cuda") for k, v in hb.items()})
+    check(bool(torch.isfinite(loss)), f"distributed: elastic: step loss {float(loss)}")
+    state = checkpoint_tree(params, opt, leaf=lambda t: t.detach())
+    target = tree.map(lambda t: t.to("meta"), state)
+    nbytes = sum(t.numel() * t.element_size() for t in tree.leaves(state))
+
+    def placed_bytes(c, mesh):
+        psp = param_specs(target["params"], c, mesh)
+        osp = opt_specs(target["opt"], psp, c, mesh)
+        return {"params": rank_bytes(to_named(psp, mesh, target["params"])),
+                "m": rank_bytes(to_named(osp["m"], mesh, target["opt"]["m"])),
+                "v": rank_bytes(to_named(osp["v"], mesh, target["opt"]["v"]))}
+
+    root = tempfile.mkdtemp(prefix="elastic-")
+    out = {"bytes": nbytes, "restores": []}
+    try:
+        save_mesh = make_local_mesh(*ELASTIC_SAVE_MESH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(root, 1, state)
+        out["save_ms"] = (time.perf_counter() - t0) * 1e3
+        out["saved_rank_bytes"] = placed_bytes(cfg, save_mesh)
+        log(f"distributed: elastic: {cfg.name} params and AdamW state after one step (loss "
+            f"{float(loss):.4f}), {nbytes} B, saved in {out['save_ms']:.1f} ms; under "
+            f"{save_mesh} with {cfg.sharding_preset} a rank holds {out['saved_rank_bytes']} "
+            f"B ({gpu})")
+        for shape, preset in ELASTIC_RESTORES:
+            c = cfg.with_overrides(sharding_preset=preset)
+            mesh = make_local_mesh(*shape)
+            t0 = time.perf_counter()
+            got = restore_elastic(root, 1, c, mesh, {"params": target["params"]})
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+                tree.leaves(got["params"]), tree.leaves(state["params"]), strict=True))
+            held = placed_bytes(c, mesh)
+            check(rank_bytes(got.placement["params"]) == held["params"],
+                  "distributed: elastic: placement bytes")
+            log(f"distributed: elastic: restored the params under {mesh} with {preset} in "
+                f"{ms:.1f} ms, bit for bit {same}; a rank holds {held} B of the {nbytes} "
+                f"(the moments' by opt_specs) ({gpu})")
+            check(same, f"distributed: elastic: the restore under {shape} differs")
+            out["restores"].append(dict(mesh=list(shape), preset=preset, ms=ms,
+                                        rank_bytes=held))
+            del got
+        bad = {"params": tree.map(lambda t: t[..., :max(1, t.shape[-1] // 2)],
+                                  target["params"])}
+        try:
+            restore_elastic(root, 1, cfg, save_mesh, bad)
+            check(False, "distributed: elastic: a target of the wrong shape was restored")
+        except ValueError as e:
+            log(f"distributed: elastic: a target of the wrong shape rejected: {e}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del params, opt, bundle, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def distributed_phase():
+    """Phase 9: ``dist_ep``, ``dist_pipeline`` and ``dist_elastic``, each
+    timed by its own log line."""
+    gpu = card()
+    out, t_all = {}, time.perf_counter()
+    for label, run in (("ep", dist_ep), ("pipeline", dist_pipeline),
+                       ("elastic", dist_elastic)):
+        t0 = time.perf_counter()
+        out[label] = run(gpu)
+        log(f"distributed: {label} took {time.perf_counter() - t0:.1f} s ({gpu})")
+    log(f"distributed: phase took {time.perf_counter() - t_all:.1f} s ({gpu})")
+    return out
+
+
 def flash_row(launches, reps: int):
     """The flash kernel at the serve path's largest prefill shape, timed
     beside its bound, its plain version and torch's fused SDPA."""
@@ -4866,6 +5302,7 @@ def main() -> int:
             log(f"{label}: serve phase took {time.perf_counter() - t0:.1f} s")
         log(f"the family serve phases took {time.perf_counter() - t_fam:.1f} s")
         trained = train_phase()
+        dist = distributed_phase()
         for row in rows:
             label = TRAIN_KERNEL_RUN.get(row["name"])
             if label:
@@ -4875,6 +5312,10 @@ def main() -> int:
                     **{k: family[k].get(row["name"], 0) for k, _ in FAMILY_PHASES},
                     **{f"train_{k}": trained[k]["launches"].get(row["name"], 0)
                        for k in FAMILY_TRAIN_RUNS}}
+            if row["name"] == "moe_route":
+                row["ep_launches"] = dist["ep"]["launches"]["moe_route"]
+            if row["name"] == "flash_attention":
+                row["pipeline_launches"] = dist["pipeline"]["launches"]["flash_attention"]
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -30,21 +30,23 @@ def _flatten(tree) -> dict:
     """``{path key: leaf}`` with keys joined as the JAX package joins a
     pytree path (dict keys, sequence indices; ``None`` holds no leaf)."""
     out: dict = {}
-
-    def go(x, path):
-        if x is None:
-            return
-        if isinstance(x, dict):
-            for k in sorted(x):
-                go(x[k], path + (k,))
-        elif isinstance(x, (tuple, list)):
-            for i, v in enumerate(x):
-                go(v, path + (i,))
-        else:
-            out["/".join(str(p) for p in path)] = x
-
-    go(tree, ())
+    _flatten_into(tree, (), out)
     return out
+
+
+def _flatten_into(x, path, out: dict):
+    # module-level recursion: a nested recursive function is a reference
+    # cycle that would hold the leaves until the cyclic collector runs
+    if x is None:
+        return
+    if isinstance(x, dict):
+        for k in sorted(x):
+            _flatten_into(x[k], path + (k,), out)
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            _flatten_into(v, path + (i,), out)
+    else:
+        out["/".join(str(p) for p in path)] = x
 
 
 def _rebuild(tree, leaves: dict, path=()):

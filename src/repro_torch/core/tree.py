@@ -21,34 +21,35 @@ def _is_node(x) -> bool:
 def flatten(tree) -> tuple[list, Any]:
     """``(leaves, treedef)`` with leaves in a fixed visiting order."""
     out: list = []
+    return out, _flatten(tree, out)
 
-    def go(x):
-        if isinstance(x, dict):
-            keys = tuple(sorted(x))
-            return ("dict", keys, tuple(go(x[k]) for k in keys))
-        if isinstance(x, (tuple, list)):
-            kind = "tuple" if isinstance(x, tuple) else "list"
-            return (kind, len(x), tuple(go(v) for v in x))
-        out.append(x)
-        return _LEAF
 
-    treedef = go(tree)
-    return out, treedef
+# module-level recursion: a nested recursive function would be a reference
+# cycle (the function and its closure cell) holding the leaves until the
+# cyclic garbage collector runs, which keeps device memory alive
+def _flatten(x, out: list):
+    if isinstance(x, dict):
+        keys = tuple(sorted(x))
+        return ("dict", keys, tuple(_flatten(x[k], out) for k in keys))
+    if isinstance(x, (tuple, list)):
+        kind = "tuple" if isinstance(x, tuple) else "list"
+        return (kind, len(x), tuple(_flatten(v, out) for v in x))
+    out.append(x)
+    return _LEAF
 
 
 def unflatten(treedef, leaves) -> Any:
-    it = iter(leaves)
+    return _unflatten(treedef, iter(leaves))
 
-    def go(d):
-        if d == _LEAF:
-            return next(it)
-        kind, meta, children = d
-        if kind == "dict":
-            return {k: go(c) for k, c in zip(meta, children)}
-        vals = [go(c) for c in children]
-        return tuple(vals) if kind == "tuple" else vals
 
-    return go(treedef)
+def _unflatten(d, it):
+    if d == _LEAF:
+        return next(it)
+    kind, meta, children = d
+    if kind == "dict":
+        return {k: _unflatten(c, it) for k, c in zip(meta, children)}
+    vals = [_unflatten(c, it) for c in children]
+    return tuple(vals) if kind == "tuple" else vals
 
 
 def leaves(tree) -> list:

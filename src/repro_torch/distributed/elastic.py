@@ -12,9 +12,12 @@ DESIGN.md §14).
   admissions (streaming/frontend.py) drive deterministic grow/shrink
   decisions off the ``ignis.elastic.*`` properties.
 
-* **Checkpoint elasticity** (``restore_elastic``): re-placing a saved
-  train-state tree onto a resized world needs the sharding rules of
-  ``distributed/sharding.py``, which the port does not carry yet; it raises.
+* **Checkpoint elasticity** (``restore_elastic``): re-places a saved
+  train-state tree onto a differently-shaped mesh. Checkpoints store full
+  logical arrays, so elasticity is a placement decision at restore: derive
+  the specs from the same rules (``distributed/sharding.py``), restore on
+  the mesh's device, place. Divisibility permitting, any (pod, data, model)
+  factorisation restores the same training state.
 
 Ranks are virtual executor slots on one device (``ICluster.slots``): a
 block's "devices" are the world ranks it is committed to (``block_ranks``).
@@ -26,17 +29,39 @@ from typing import Optional
 
 import torch
 
+from repro_torch.checkpoint.checkpoint import restore
 from repro_torch.core import faults, tree
 from repro_torch.core.metrics import Counters
 from repro_torch.core.partition import Block, block_ranks, pad_to, place_block
+from repro_torch.distributed import sharding
 
 
-def restore_elastic(ckpt_dir: str, step: int, cfg, ctx, target: dict) -> dict:
-    """Restore a train-state tree re-placed for a resized world: needs
-    ``param_specs``/``opt_specs`` of ``distributed/sharding.py``."""
-    raise NotImplementedError(
-        "restore_elastic needs distributed/sharding.py's param_specs/opt_specs, "
-        "which the port does not carry yet (ROADMAP: the rest of distributed/)")
+class PlacedState(dict):
+    """A restored train-state tree (``{"params"[, "opt"]}``, leaves on the
+    mesh's device) and, in ``placement``, the same keys' trees of
+    ``sharding.Placement``: which rank of ``mesh`` holds which slice."""
+
+    def __init__(self, state: dict, placement: dict, mesh):
+        super().__init__(state)
+        self.placement = placement
+        self.mesh = mesh
+
+
+def restore_elastic(ckpt_dir: str, step: int, cfg, mesh, target: dict) -> PlacedState:
+    """Restore a train-state tree ``{"params": …[, "opt": …]}`` re-placed
+    for ``mesh`` (``launch.mesh.Mesh``; it may have another shape than the
+    one that saved). ``target`` holds the JAX package's trees, as
+    ``launch.train.checkpoint_tree`` gives them (tensors, ``meta`` tensors or
+    anything with a ``shape``; ``params`` may be the port's model). A leaf
+    whose shape disagrees with the checkpoint raises ``ValueError``."""
+    target = {**target, "params": sharding.param_tree(target["params"])}
+    psp = sharding.param_specs(target["params"], cfg, mesh)
+    specs = {"params": psp}
+    if "opt" in target:
+        specs["opt"] = sharding.opt_specs(target["opt"], psp, cfg, mesh)
+    state = restore(ckpt_dir, step, target, mesh.device)
+    placement = {k: sharding.to_named(s, mesh, state[k]) for k, s in specs.items()}
+    return PlacedState(state, placement, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +247,12 @@ class ElasticPolicy:
         return delta
 
     # -- checkpoint elasticity ------------------------------------------------
-    def restore(self, ckpt_dir: str, step: int, cfg, target: dict) -> dict:
-        """``restore_elastic`` bound to the worker's current world."""
-        return restore_elastic(ckpt_dir, step, cfg, self.worker.context, target)
+    def restore(self, ckpt_dir: str, step: int, cfg, target: dict) -> PlacedState:
+        """Re-place checkpointed train state onto the worker's CURRENT
+        (possibly just-resized) world — ``restore_elastic`` on the one-axis
+        mesh of ``worker.context``, so a grow/shrink is followed by one call
+        here."""
+        from repro_torch.launch.mesh import Mesh
+
+        return restore_elastic(ckpt_dir, step, cfg, Mesh.of_context(self.worker.context),
+                               target)

@@ -4,10 +4,13 @@
 Production loop on one card: AdamW with the warm-up/cosine schedule,
 optional gradient compression with error feedback, the double-buffered data
 feed, asynchronous checkpoints and restart from the latest one, per-step
-metrics. ``device`` takes the place of the JAX training loop's mesh: the port
-runs on one device, ``cuda`` unless the caller passes ``device="cpu"``;
-the sharding presets and ZeRO come with ``distributed/sharding`` (ROADMAP:
-the rest of ``distributed/``).
+metrics. ``mesh`` (``launch.mesh``) places the parameters and the optimizer
+state by the config's sharding preset (``param_specs``/``opt_specs``, ZeRO-1
+under ``*_zero1``) and the batch by ``lead_axes``, as the JAX loop does; its
+ranks are virtual ranks on the mesh's device, so the placement is
+bookkeeping (``train_placement``) and the arithmetic is the same as without
+one. A caller with no mesh names the ``device`` (``cuda`` unless the caller
+passes ``device="cpu"``).
 
 The loop feeds token batches (``tokens``, ``labels``), as the JAX one does:
 it trains the dense, MoE, SSM and hybrid families and the VLM without its
@@ -33,6 +36,15 @@ from repro_torch.configs import get_config
 from repro_torch.data.pipeline import TrainPipeline, batches_from_rows, pack_sequences
 from repro_torch.data.synthetic import synthetic_batches, synthetic_corpus
 from repro_torch.distributed.compression import compressed_grads, init_ef_state
+from repro_torch.distributed.sharding import (
+    P,
+    Placement,
+    lead_axes,
+    opt_specs,
+    param_specs,
+    rank_bytes,
+    to_named,
+)
 from repro_torch.interop import load_reference, opt_from_reference, opt_tree, reference_tree
 from repro_torch.models import build_model
 from repro_torch.optim.schedule import warmup_cosine
@@ -68,16 +80,36 @@ def restore_checkpoint(ckpt_dir, step, params, opt):
     return opt_from_reference(state["opt"], params)
 
 
+def train_placement(params, opt, cfg, mesh, batch: int, seq_len: int) -> dict:
+    """Where the train state and the token batch live on ``mesh``'s ranks:
+    ``{"params", "opt"}`` as trees of ``Placement`` in the JAX package's
+    tree (``checkpoint_tree``), ``"batch"`` the (batch, seq_len) token
+    batch's placement (``P(lead_axes)`` or replicated)."""
+    state = checkpoint_tree(params, opt, leaf=lambda t: t.to("meta"))
+    psp = param_specs(state["params"], cfg, mesh)
+    lead = lead_axes(cfg, mesh, batch, "train")
+    return {"params": to_named(psp, mesh, state["params"]),
+            "opt": to_named(opt_specs(state["opt"], psp, cfg, mesh), mesh, state["opt"]),
+            "batch": Placement(mesh, P(lead, None) if lead else P(), (batch, seq_len), 4)}
+
+
 def train(arch="ignis-100m", steps=100, batch=8, seq_len=256, ckpt_dir=None,
           ckpt_every=50, compression="none", data="synthetic", reduced=False,
-          device="cuda", log_every=10, resume=True, seed=0):
+          device="cuda", mesh=None, log_every=10, resume=True, seed=0):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if mesh is not None:
+        device = mesh.device
     bundle = build_model(cfg)
     params = bundle.init(torch.Generator(device=device).manual_seed(seed))
     opt = bundle.init_opt(params)
     ef = init_ef_state(params) if compression != "none" else None
+    if mesh is not None:
+        placed = train_placement(params, opt, cfg, mesh, batch, seq_len)
+        print(f"[train] {cfg.sharding_preset} on {mesh}: {rank_bytes(placed['params'])} "
+              f"parameter and {rank_bytes(placed['opt'])} optimizer bytes a rank, batch "
+              f"{placed['batch'].spec}", flush=True)
 
     start = 0
     ckptr = None

@@ -16,9 +16,11 @@ Switch/ST-MoE. The router product ``x @ router``, the packing, the expert
 products, the scatter and the loss stay plain torch, as they are plain jnp
 outside any kernel in the JAX package.
 
-Expert parallelism (the JAX package's ``moe_ep``) is not ported
-(ROADMAP: ``moe_ep``): the JAX ``moe_apply`` takes it only on a mesh whose data
-axis has several devices, and the port runs on one.
+Expert parallelism is ``models/moe_ep.py``: ``moe_apply`` takes it by an
+explicit rule (``moe_ep.ep_applicable``: ``cfg.moe_ep``, an ambient mesh
+whose data axis has p > 1 ranks, ``E % p == 0``, ``B % p == 0``) where the
+JAX function tries EP and falls back from any error to the flat path; an
+error inside the port's EP raises.
 """
 from __future__ import annotations
 
@@ -99,6 +101,11 @@ def moe_ffn_bsd(x, p, cfg):
 
 
 def moe_apply(x, p, cfg):
-    """(B, S, D) MoE: the flattened-token path (no expert parallelism on one
-    device, as the JAX function chooses on a mesh without a data axis)."""
+    """(B, S, D) MoE with the path chosen by rule: expert parallelism over
+    the ambient mesh's data ranks where ``ep_applicable`` holds, the
+    flattened-token path otherwise."""
+    from repro_torch.models.moe_ep import ep_applicable, moe_ffn_bsd_ep
+
+    if ep_applicable(cfg, x.shape[0]):
+        return moe_ffn_bsd_ep(x, p, cfg)
     return moe_ffn_bsd(x, p, cfg)

@@ -374,6 +374,7 @@ def test_chip_smoke_host_sha256_is_hashlibs(smoke):
 
 @pytest.mark.parametrize("example", [
     "torch_native_hpc_app.py", "torch_transitive_closure.py",
+    "torch_quickstart.py", "torch_hybrid_job.py",
     # the hybrid training app at ignis-tiny, shortened: its loss must fall
     "torch_hybrid_train.py --steps 20 --batch 4 --seq-len 64"])
 def test_torch_examples_run_on_the_cpu(example):

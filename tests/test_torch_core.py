@@ -375,3 +375,30 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
 def test_block_dataclass_reports_its_device():
     b = Block(torch.zeros(4), torch.ones(4, dtype=torch.bool))
     assert b.device == torch.device("cpu") and b.capacity == 4
+
+
+@pytest.mark.parametrize("coll", ["alltoall", "ppermute", "allreduce", "gather"])
+def test_collective_buffers_are_freed_without_the_cycle_collector(coll):
+    """A collective's operand and result go when their last reference does:
+    no reference cycle (a recursive closure in ``tree.flatten``) holds them
+    until the cyclic collector runs, which on the card kept every exchange
+    buffer of a 24-layer expert-parallel prefill alive at once."""
+    import gc
+    import weakref
+
+    ctx = IContext(8, "cpu", "data")
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        x = torch.randn(8 * 8 * 4, 3)
+        y = getattr(comm, coll)(ctx, x)
+        refs = [weakref.ref(x), weakref.ref(y)]
+        del x, y
+        assert [r() for r in refs] == [None, None]
+        leaves, treedef = tree.flatten({"a": torch.zeros(2), "b": (torch.ones(1),)})
+        ref = weakref.ref(leaves[0])
+        del leaves
+        assert ref() is None and tree.unflatten(treedef, [1, 2]) == {"a": 1, "b": (2,)}
+    finally:
+        if was:
+            gc.enable()

@@ -182,13 +182,169 @@ def test_repad_block_keeps_rows_in_rank_order(p):
     assert np.array_equal(out.data.numpy()[:blk.capacity], blk.data.numpy())
 
 
-def test_restore_elastic_waits_for_the_sharding_rules(tmp_path):
-    w = _worker()
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tel.restore_elastic(str(tmp_path), 1, None, w.context, {})
+# ---------------------------------------------------------------------------
+# restore_elastic: a train state saved under one mesh, placed for another
+# (tests/_elastic_main.py, tests/test_elastic.py, tests/test_checkpoint.py)
+# ---------------------------------------------------------------------------
+
+def _olmo_state(seed=1):
+    """The reduced OLMo's params and AdamW state in the JAX tree, on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import checkpoint_tree
+    from repro_torch.models import build_model
+
+    cfg = get_config("olmo-1b").reduced()
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator().manual_seed(seed))
+    return cfg, checkpoint_tree(params, bundle.init_opt(params))
+
+
+def _leaves(t):
+    from repro_torch.core import tree
+
+    return tree.leaves(t)
+
+
+def _same(a, b) -> bool:
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _jax_specs(tree, cfg, shape):
+    from repro.distributed import sharding as js
+    from repro_torch.interop import _tree_numpy
+
+    class StandIn:
+        axis_names = ("data", "model")
+
+    m = StandIn()
+    m.shape = dict(zip(m.axis_names, shape))
+    host = _tree_numpy(tree)
+    psp = js.param_specs(host["params"], cfg, m)
+    return {"params": psp, "opt": js.opt_specs(host["opt"], psp, cfg, m)}
+
+
+def _spec_tree(placement):
+    from repro_torch.core import tree
+
+    return tree.map(lambda pl: tuple(pl.spec), placement)
+
+
+def _jax_spec_tree(specs):
+    return jax.tree.map(tuple, specs, is_leaf=lambda s: not isinstance(s, dict))
+
+
+@pytest.mark.parametrize("saved,restored", [((8, 1), (4, 1)), ((4, 1), (8, 1)),
+                                            ((4, 1), (5, 1)), ((8, 1), (4, 2))])
+def test_restore_elastic_across_meshes(tmp_path, saved, restored):
+    """8 → 4, 4 → 8, the uneven world of 5 (its specs replicate) and
+    8 → (4, 2): every leaf back bit for bit, placed by the specs of the
+    mesh it was restored for."""
+    from repro_torch.checkpoint import save
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cfg, state = _olmo_state()
+    cfg = cfg.with_overrides(sharding_preset="fsdp_tp_zero1")
+    save(str(tmp_path), 1, state)  # placed under `saved`, then saved from there
+    placed = tel.restore_elastic(str(tmp_path), 1, cfg, make_local_mesh(*saved, device="cpu"),
+                                 state)
+    save(str(tmp_path), 2, dict(placed))
+    out = tel.restore_elastic(str(tmp_path), 2, cfg, make_local_mesh(*restored, device="cpu"),
+                              state)
+    assert set(out) == {"params", "opt"}
+    assert _same(out, state)
+    assert all(t.device == torch.device("cpu") for t in _leaves(out))
+    assert out.mesh == make_local_mesh(*restored, device="cpu")
+    assert _spec_tree(out.placement) == _jax_spec_tree(_jax_specs(state, cfg, restored))
+
+
+def test_restore_elastic_rejects_shape_mismatch(tmp_path):
+    from repro_torch.checkpoint import save
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cfg, state = _olmo_state()
+    save(str(tmp_path), 1, {"params": state["params"]})
+    bad = {"params": _map(lambda x: x[..., : max(1, x.shape[-1] // 2)], state["params"])}
+    with pytest.raises(ValueError, match="checkpoint"):
+        tel.restore_elastic(str(tmp_path), 1, cfg, make_local_mesh(1, 1, device="cpu"), bad)
+    with pytest.raises(ValueError, match="checkpoint"):
+        tel.restore_elastic(str(tmp_path), 1, cfg, make_local_mesh(8, 1, device="cpu"), bad)
+
+
+def _map(fn, t):
+    from repro_torch.core import tree
+
+    return tree.map(fn, t)
+
+
+def test_restore_elastic_single_rank_params_and_opt(tmp_path):
+    """tests/test_checkpoint.py's single-device restore, params and opt."""
+    from repro_torch.checkpoint import save
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cfg, state = _olmo_state(seed=0)
+    save(str(tmp_path), 3, state)
+    out = tel.restore_elastic(str(tmp_path), 3, cfg, make_local_mesh(1, 1, device="cpu"),
+                              {"params": state["params"], "opt": state["opt"]})
+    assert _same(out, state)
+    assert all(pl.rank_bytes == t.numel() * t.element_size()
+               for pl, t in zip(_leaves(out.placement), _leaves(out), strict=True))
+
+
+def test_restore_elastic_takes_a_tree_saved_by_jax(tmp_path):
+    """A train state saved by the JAX package restores in the port, bit for
+    bit, with meta leaves as the target (shapes alone)."""
+    import jax.numpy as jnp
+
+    from repro.checkpoint import save as jsave
+    from repro_torch.interop import _tree_numpy
+    from repro_torch.launch.mesh import make_local_mesh
+
+    cfg, state = _olmo_state()
+    jsave(str(tmp_path), 5, jax.tree.map(jnp.asarray, _tree_numpy(state)))
+    target = _map(lambda t: t.to("meta"), state)
+    out = tel.restore_elastic(str(tmp_path), 5, cfg, make_local_mesh(4, 2, device="cpu"),
+                              target)
+    assert _same(out, state)
+
+
+def test_policy_restore_places_on_the_live_world(tmp_path):
+    """``ElasticPolicy.restore`` places onto the worker's CURRENT world: the
+    one-axis mesh of its context, after a grow and after a shrink."""
+    from repro_torch.checkpoint import save
+    from repro_torch.launch.mesh import Mesh
+
+    cfg, state = _olmo_state()  # the reduced config's preset: dp
+    save(str(tmp_path), 2, {"params": state["params"]})
+    w = _worker(2, slots=8)
     pol = tel.ElasticPolicy(w, props=_props(enabled="false"))
-    with pytest.raises(NotImplementedError, match="sharding"):
-        pol.restore(str(tmp_path), 1, None, {})
+    for resize in (lambda: None, lambda: w.grow(2), lambda: w.shrink(3)):
+        resize()
+        out = pol.restore(str(tmp_path), 2, cfg, {"params": state["params"]})
+        assert _same(out["params"], state["params"])
+        assert out.mesh == Mesh.of_context(w.context)
+        assert out.mesh.shape == {"data": w.executors}
+        assert all(tuple(pl.spec) == () for pl in _leaves(out.placement["params"]))
+
+
+def test_a_spec_naming_an_axis_the_mesh_lacks_raises(tmp_path):
+    """The rules name "model" wherever it divides, and an absent axis has
+    size 1: on the worker's one-axis mesh an fsdp preset names it, which
+    JAX's ``NamedSharding`` refuses, and so does the port's placement."""
+    from jax.sharding import NamedSharding, PartitionSpec as JP
+
+    from repro.core import compat
+    from repro_torch.checkpoint import save
+
+    cfg, state = _olmo_state()
+    save(str(tmp_path), 2, {"params": state["params"]})
+    pol = tel.ElasticPolicy(_worker(), props=_props(enabled="false"))
+    with pytest.raises(ValueError, match="model"):
+        pol.restore(str(tmp_path), 2, cfg.with_overrides(sharding_preset="fsdp"),
+                    {"params": state["params"]})
+    with pytest.raises(ValueError, match="model"):
+        NamedSharding(compat.make_mesh((1,), ("data",)), JP("model", "data"))
 
 
 # ---------------------------------------------------------------------------

@@ -499,3 +499,72 @@ def test_train_reduces_the_loss_on_the_corpus():
     _, _, losses = t_train_mod.train(arch="ignis-tiny", steps=20, batch=4, seq_len=32,
                                      data="corpus", device="cpu", log_every=10)
     assert losses[-1][1] < losses[0][1]
+
+
+# ---------------------------------------------------------------------------
+# launch/train on a mesh: placements by the sharding rules, same arithmetic
+# ---------------------------------------------------------------------------
+
+MESH_RUN = dict(arch="ignis-tiny", steps=4, batch=8, seq_len=16, log_every=1)
+
+
+def _with_preset(monkeypatch, preset):
+    get = t_train_mod.get_config
+    monkeypatch.setattr(t_train_mod, "get_config",
+                        lambda arch: get(arch).with_overrides(sharding_preset=preset))
+
+
+@pytest.mark.parametrize("preset", ["dp", "fsdp_tp_zero1", "tp"])
+def test_train_on_a_mesh_is_the_run_without_one(monkeypatch, preset):
+    """The mesh places the state over virtual ranks of the one device: the
+    losses, parameters and moments are those of the run without a mesh,
+    bit for bit."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    _with_preset(monkeypatch, preset)
+    p0, o0, l0 = t_train_mod.train(device="cpu", **MESH_RUN)
+    p1, o1, l1 = t_train_mod.train(mesh=make_local_mesh(4, 2, device="cpu"), **MESH_RUN)
+    assert l0 == l1
+    for (n, a), (m, b) in zip(p0.named_parameters(), p1.named_parameters(), strict=True):
+        assert n == m and torch.equal(a, b), n
+    for k in ("m", "v"):
+        assert all(torch.equal(o0[k][n], o1[k][n]) for n in o0[k])
+    assert torch.equal(o0["step"], o1["step"])
+
+
+@pytest.mark.parametrize("preset", ["dp", "fsdp_tp_zero1", "tp_zero1"])
+def test_train_places_by_the_reference_specs(monkeypatch, preset):
+    """The placements ``train`` used are JAX's ``param_specs``/``opt_specs``
+    of the same config on a (4, 2) mesh, and the batch's ``P(lead_axes)``."""
+    from jax.sharding import PartitionSpec as JP
+
+    from repro.distributed import sharding as js
+    from repro_torch.launch.mesh import make_local_mesh
+
+    _with_preset(monkeypatch, preset)
+    used = []
+    real = t_train_mod.train_placement
+
+    def recording(*a, **kw):
+        used.append(real(*a, **kw))
+        return used[-1]
+
+    monkeypatch.setattr(t_train_mod, "train_placement", recording)
+    t_train_mod.train(mesh=make_local_mesh(4, 2, device="cpu"), **{**MESH_RUN, "steps": 1})
+    (placed,) = used
+
+    class StandIn:
+        axis_names = ("data", "model")
+        shape = {"data": 4, "model": 2}
+
+    cfg = j_config(MESH_RUN["arch"]).with_overrides(sharding_preset=preset)
+    jb = j_build(cfg)
+    jp = jax.eval_shape(jb.init, jax.random.PRNGKey(0))
+    psp = js.param_specs(jp, cfg, StandIn())
+    want = {"params": psp, "opt": js.opt_specs(jax.eval_shape(jb.init_opt, jp), psp, cfg,
+                                               StandIn())}
+    for key in ("params", "opt"):
+        got = {k: tuple(v.spec) for k, v in _leaves(placed[key])}
+        assert got == {k: tuple(v) for k, v in _leaves(want[key])}, key
+    lead = js.lead_axes(cfg, StandIn(), MESH_RUN["batch"], "train")
+    assert tuple(placed["batch"].spec) == tuple(JP(lead, None) if lead else JP())
