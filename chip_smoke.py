@@ -12,8 +12,10 @@ InternVL2-1B, Whisper-tiny), then the training path (the paper's hybrid
 training app, and OLMo-1B, Mamba2-780M, Mixtral-8x7B, InternVL2-1B,
 Whisper-tiny and Jamba's gradient at full width), then the rest of
 ``distributed/`` on meshes of virtual ranks (expert-parallel Phi-3.5-MoE,
-OLMo-1B as pipeline stages, ``restore_elastic`` of its train state) —
-holds every hand-written kernel against its plain torch version at the
+OLMo-1B as pipeline stages, ``restore_elastic`` of its train state), then
+``launch/``'s last two entry points (the dry run of every assigned cell,
+checked against OLMo-1B run on the card, and ``ignis-submit``) — holds
+every hand-written kernel against its plain torch version at the
 shapes those paths gave it, and reports. Run from the repository root:
 
     PYTHONPATH=src python3 chip_smoke.py          # N = 2^26 words, p = 8
@@ -252,7 +254,38 @@ non-zero):
              (``ELASTIC_RESTORES``): bit for bit, a wrong shape rejected;
              save and restore ms and each placement's bytes a rank. The
              kernels line gains ``ep_launches`` (the router) and
-             ``pipeline_launches`` (flash).
+             ``pipeline_launches`` (flash);
+10. launch — after phase 9's memory is released, ``launch/dryrun`` and
+             ``launch/submit``, the phase's wall time logged against its
+             ``LAUNCH_BUDGET_S`` = 60 s. The sweep: ``run_cell`` for every
+             ``ASSIGNED`` arch and each of its ``shape_cells()`` (34 cells)
+             on ``make_production_mesh()`` with fake ``cuda`` tensors, and
+             on the two-pod mesh for one arch of each family
+             (``LAUNCH_MULTI_POD``); the pieces (one layer of each
+             signature, and each cell's base) priced first by
+             ``dryrun.prefetch`` in ``LAUNCH_WORKERS`` processes. Checks:
+             every record ok with the JAX record's keys, ``chips`` the
+             mesh's ranks, ``model_flops`` exactly (6 | 2) x active
+             params x tokens, the argument bytes exactly the placements'
+             sum, every memory and time term finite and non-negative, the
+             JSONL read back equal. Reports each cell's ``per_device_total``,
+             dominant term and ``step_time_s``, and names the cells over
+             the card's memory. Meanwhile ``ignis-submit --attach`` runs a
+             driver (the hybrid wordcount at 2^20 words, dataflow and native
+             counts against ``np.bincount``) on the card: rc 0, ``job.json``,
+             the ``IGNIS_*`` variables the driver saw. Then OLMo-1B (flash)
+             on ``make_local_mesh(1, 1)``: a prefill and a train step of
+             ``LAUNCH_OLMO`` = 4 x 2048 priced by ``run_cell(cell=)`` and run
+             for real through ``step_for_cell``'s ``fn`` (random bf16
+             weights): the argument bytes equal the real arguments', and the
+             flash calls priced a layer times the layers equal the real
+             prefill's launches (held); the predicted peak and step time
+             against ``max_memory_allocated`` and CUDA-event ms, the same
+             roofline at ``calibrate()``'s rates, and the train step's
+             priced kernel calls against its launches (reported). Last, a
+             detached submit whose driver's log line is polled for at most
+             ``SUBMIT_POLL_S`` and whose process is waited for. The kernels
+             line's flash row gains ``dryrun_priced_calls``.
 
 The last two lines are the ``kernels`` JSON object (with the card's name and
 power limit just before it) and ``{"ok": true, "device": {...}}``.
@@ -5058,6 +5091,466 @@ def distributed_phase():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: launch — the dry run and ignis-submit
+# ---------------------------------------------------------------------------
+
+#: worker processes that price the sweep's pieces at once (the machine's
+#: CPU cores); fake tensors only, no device work
+LAUNCH_WORKERS = 8
+#: the archs whose cells also run on the two-pod mesh: one of each family
+#: (the single-pod sweep takes more than 30 s on the card: PERF.md §4)
+LAUNCH_MULTI_POD = ("qwen3-14b", "mixtral-8x7b", "mamba2-780m", "jamba-1.5-large-398b",
+                    "internvl2-1b", "whisper-tiny")
+#: OLMo-1B's two cells one card runs, B x S (TRAIN_RUNS' shape), and the
+#: timed calls of each real run
+LAUNCH_OLMO = (4, 2048)
+LAUNCH_REPS = 3
+#: the phase's time budget, seconds (logged against its wall time)
+LAUNCH_BUDGET_S = 60
+#: ignis-submit's attached driver: the hybrid wordcount at 2^20 words
+SUBMIT_LOG2N = 20
+SUBMIT_VOCAB = 1 << 16
+#: how long the detached driver's log line is polled for, seconds
+SUBMIT_POLL_S = 30
+#: the JAX dry run's record keys (its ``xla_cost`` is the port's ``graph_cost``)
+JAX_RECORD_KEYS = ("key", "arch", "shape", "mesh", "chips", "kind", "tag", "overrides",
+                   "ok", "lower_s", "compile_s", "memory", "graph_cost", "parsed",
+                   "top_collectives", "roofline", "total_s")
+JAX_MEMORY_KEYS = ("argument_size_in_bytes", "output_size_in_bytes", "temp_size_in_bytes",
+                   "alias_size_in_bytes", "generated_code_size_in_bytes", "per_device_total")
+JAX_ROOFLINE_KEYS = ("compute_s", "memory_s", "collective_s", "dominant", "model_flops",
+                     "useful_ratio", "step_time_s", "roofline_fraction")
+JAX_PARSED_KEYS = ("flops_per_device", "hbm_bytes_per_device", "comm_bytes_per_device",
+                   "comm_bytes_total_per_device", "wire_bytes_per_device",
+                   "unknown_trip_loops", "n_computations")
+
+WORDCOUNT_DRIVER = '''"""ignis-submit's attached driver in chip_smoke.py's launch phase: the
+hybrid wordcount (a dataflow reduceByKey and the native SPMD app) on the
+card, with the properties ignis-submit passed in its environment."""
+import argparse
+import json
+import os
+import sys
+import time
+
+T0 = time.perf_counter()
+sys.path.insert(0, {src!r})
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch import kernels as K  # noqa: E402
+from repro_torch.core import ICluster, IProperties, IWorker  # noqa: E402
+from repro_torch.core.native import ignis_export  # noqa: E402
+
+
+@ignis_export("wordcount")
+def wordcount(ctx, data=None, valid=None):
+    vocab = int(ctx.var("vocab"))
+    ids = torch.where(valid, data["word"], vocab).long()
+    counts = torch.bincount(ids, minlength=vocab + 1)[:-1].to(torch.int32)
+    keys = torch.arange(vocab, dtype=torch.int32, device=ids.device)
+    return {{"key": keys, "value": counts}}, counts > 0
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--log2n", type=int, default=20)
+    ap.add_argument("--vocab", type=int, default=1 << 16)
+    a = ap.parse_args()
+    t_import = time.perf_counter() - T0
+    env = {{k: v for k, v in os.environ.items() if k.startswith("IGNIS_")}}
+    n = 1 << a.log2n
+    words = (np.random.default_rng(0).zipf(1.1, n) % a.vocab).astype(np.int32)
+    w = IWorker(ICluster(IProperties({{
+        "ignis.device": env["IGNIS_IGNIS_DEVICE"],
+        "ignis.executor.instances": env["IGNIS_IGNIS_EXECUTOR_INSTANCES"]}})), "python")
+    t_worker = time.perf_counter() - T0
+    K.reset_launches()
+    src = w.parallelize({{"word": words}})
+    counts = (src.map(lambda r: {{"key": r["word"], "value": 1}})
+              .reduce_by_key(lambda x, y: x + y, 0))
+    native = w.call("wordcount", src, vocab=a.vocab)
+    exp = np.bincount(words, minlength=a.vocab)
+    want = {{k: int(v) for k, v in enumerate(exp) if v}}
+    got = {{int(r["key"]): int(r["value"]) for r in counts.collect()}}
+    got_native = {{int(r["key"]): int(r["value"]) for r in native.collect()}}
+    ok = got == want and got_native == want
+    launches = {{k: fn.launches for k, fn in K.launch_counters().items()}}
+    report = dict(env=env, words=n, distinct=len(got), ok=ok, launches=launches,
+                  device_peak_bytes=torch.cuda.max_memory_allocated(), import_s=t_import,
+                  worker_s=t_worker, total_s=time.perf_counter() - T0)
+    with open(a.out, "w") as f:
+        json.dump(report, f)
+    print(f"wordcount driver: {{n}} words, {{len(got)}} distinct, the dataflow's and the "
+          f"native app's counts {{'equal' if ok else 'DIFFER from'}} np.bincount; launches "
+          f"{{launches}}", flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
+'''
+
+LOG_DRIVER = '''"""ignis-submit's detached driver in chip_smoke.py's launch phase: one
+line to its log."""
+import os
+
+print(f"detached driver ran as job {{os.environ['IGNIS_JOB_NAME']}}", flush=True)
+'''
+
+
+def _record_arguments(cfg, cell, mesh):
+    """The bytes a rank holds of the cell's step arguments, summed over
+    the placements of the sharding rules' specs (as the JAX dry run's
+    ``in_shardings``)."""
+    from repro_torch.core import tree
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import dryrun
+
+    _bundle, args, (ptree, otree) = dryrun.abstract_cell(cfg, cell, "cuda")
+    psp = S.param_specs(ptree, cfg, mesh)
+    trees = [S.to_named(psp, mesh, ptree)]
+    if cell.kind == "train":
+        trees += [S.to_named(S.opt_specs(otree, psp, cfg, mesh), mesh, otree),
+                  S.to_named(S.input_specs_sharding(args[2], cfg, mesh), mesh, args[2])]
+    elif cell.kind == "prefill":
+        trees.append(S.to_named(S.input_specs_sharding(args[1], cfg, mesh), mesh, args[1]))
+    else:
+        trees += [S.to_named(S.cache_specs(args[1], cfg, mesh), mesh, args[1]),
+                  S.to_named(S.input_specs_sharding({"tokens": args[2]}, cfg, mesh)["tokens"],
+                             mesh, args[2])]
+    return sum(p.rank_bytes for t in trees for p in tree.leaves(t))
+
+
+def check_dry_record(rec, cfg, cell, mesh):
+    """A dry-run record: ok, JAX's keys, the mesh's rank count, the model
+    FLOPs exactly ``(6 | 2) x active params x tokens``, the argument bytes
+    exactly the placements' sum, every memory and time term finite and
+    non-negative."""
+    import math
+
+    what = f"launch: dryrun {rec.get('key')}"
+    check(rec.get("ok") is True, f"{what}: not ok: {rec.get('error')}")
+    for keys, got, part in ((JAX_RECORD_KEYS, rec, "record"),
+                            (JAX_MEMORY_KEYS, rec["memory"], "memory"),
+                            (JAX_ROOFLINE_KEYS, rec["roofline"], "roofline"),
+                            (JAX_PARSED_KEYS, rec["parsed"], "parsed")):
+        missing = set(keys) - set(got)
+        check(not missing, f"{what}: the {part} lacks the JAX record's keys {sorted(missing)}")
+    check(rec["chips"] == mesh.size, f"{what}: chips {rec['chips']}, the mesh has {mesh.size}")
+    tokens = cell.global_batch * (1 if cell.kind == "decode" else cell.seq_len)
+    want = (6 if cell.kind == "train" else 2) * cfg.active_param_count() * tokens
+    check(rec["roofline"]["model_flops"] == want,
+          f"{what}: model_flops {rec['roofline']['model_flops']}, the formula gives {want}")
+    args = _record_arguments(cfg, cell, mesh)
+    check(rec["memory"]["argument_size_in_bytes"] == args,
+          f"{what}: argument bytes {rec['memory']['argument_size_in_bytes']}, the "
+          f"placements hold {args}")
+    terms = [*(rec["memory"][k] for k in JAX_MEMORY_KEYS),
+             *(rec["roofline"][k] for k in ("compute_s", "memory_s", "collective_s",
+                                            "step_time_s"))]
+    check(all(math.isfinite(v) and v >= 0 for v in terms),
+          f"{what}: a memory or time term is negative or not finite: {terms}")
+
+
+def launch_sweep(gpu, olmo_cells):
+    """Every ``ASSIGNED`` arch x its ``shape_cells()`` on the production
+    mesh (and ``LAUNCH_MULTI_POD``'s on the two-pod one), fake CUDA tensors
+    priced in ``LAUNCH_WORKERS`` processes (OLMo-1B's two card cells with
+    them), each record checked (``check_dry_record``) and appended to a
+    JSONL that must read back equal."""
+    import torch
+
+    from repro_torch.configs import ASSIGNED, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    t0 = time.perf_counter()
+    cells = [(a, {}, c) for a in ASSIGNED for c in get_config(a).shape_cells()]
+    pieces = dryrun.prefetch(cells + olmo_cells, LAUNCH_WORKERS, device="cuda")
+    t_pieces = time.perf_counter() - t0
+    log(f"launch: dryrun: {pieces['pieces']} pieces priced in {t_pieces:.1f} s by "
+        f"{LAUNCH_WORKERS} workers ({os.cpu_count()} CPUs, "
+        f"{len(os.sched_getaffinity(0))} usable), {pieces['busy_s']:.1f} s of their time in "
+        f"all (a worker's start {pieces['warm_s']:.1f} s); the dearest piece "
+        f"{pieces['dearest'][1]}: {pieces['dearest'][0]:.1f} s")
+    path = os.path.join(HERE, "build", "dryrun", "smoke.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    recs = []
+    for multi in (False, True):
+        mesh = make_production_mesh(multi_pod=multi, device="cuda")
+        for arch, _, cell in cells:
+            if multi and LAUNCH_MULTI_POD is not None and arch not in LAUNCH_MULTI_POD:
+                continue
+            rec = dryrun.run_cell(arch, cell.name, multi, verbose=False, device="cuda")
+            check_dry_record(rec, get_config(arch), cell, mesh)
+            dryrun.append_record(path, rec)
+            recs.append(rec)
+    took = time.perf_counter() - t0
+    back = dryrun.load_done(path)
+    check(len(back) == len(recs) and all(back[r["key"]] == json.loads(json.dumps(r))
+                                         for r in recs),
+          f"launch: dryrun: {path} does not read back the {len(recs)} records written")
+    cap = torch.cuda.get_device_properties(0).total_memory
+    for r in recs:
+        rf = r["roofline"]
+        log(f"launch: dryrun {r['key']}: per_device_total "
+            f"{r['memory']['per_device_total'] / 2**30:.2f} GiB, {rf['dominant']} dominant, "
+            f"step_time_s {rf['step_time_s']:.6g} (compute {rf['compute_s']:.4g}, memory "
+            f"{rf['memory_s']:.4g}, collective {rf['collective_s']:.4g}), useful_ratio "
+            f"{rf['useful_ratio']:.3f}, kernel calls {r['kernel_calls']}")
+    over = [r["key"] for r in recs if r["memory"]["per_device_total"] > cap]
+    log(f"launch: dryrun: {len(recs)} cells ({len(cells)} single-pod, {len(recs) - len(cells)} "
+        f"two-pod) in {took:.1f} s ({pieces['pieces']} pieces priced by {LAUNCH_WORKERS} "
+        f"workers in {t_pieces:.1f} s), every record ok with JAX's keys and read back from {path}; "
+        f"{len(over)} cells need more than the card's {cap / 2**30:.1f} GiB a rank: {over} "
+        f"(rates of the H100 SXM data sheet; {gpu})")
+    return dict(cells=len(recs), seconds=took, prefetch_s=t_pieces, over_card=over)
+
+
+def _olmo_cells():
+    from repro_torch.configs import ShapeCell
+
+    B, S = LAUNCH_OLMO
+    return {kind: ShapeCell(f"olmo_{kind}_card", S, B, kind) for kind in ("prefill", "train")}
+
+
+def launch_olmo(gpu):
+    """OLMo-1B (flash) on ``make_local_mesh(1, 1)``: each of the two card
+    cells priced by ``run_cell(cell=)``, then run for real through
+    ``step_for_cell``'s ``fn`` with random bf16 weights. Held: the argument
+    bytes equal the real arguments' ``nbytes``; the flash calls of a
+    priced prefill layer times the layers equal the real prefill's flash
+    launches. Reported: the predicted peak and step time against the
+    card's, the roofline at ``calibrate()``'s rates, the train step's priced
+    kernel calls against its launches."""
+    import gc
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.profile import calibrate
+
+    over = {"attn_impl": "flash"}
+    cfg = get_config("olmo-1b").with_overrides(**over)
+    mesh = make_local_mesh(1, 1, device="cuda")
+    rates = calibrate(n=8192, repeats=5)
+    bundle = build_model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = bundle.init(g)
+    B, S = LAUNCH_OLMO
+    out = {}
+    for kind, cell in _olmo_cells().items():
+        rec = dryrun.run_cell("olmo-1b", cell.name, False, verbose=False, overrides=over,
+                              tag="card", device="cuda", mesh=mesh, cell=cell)
+        check_dry_record(rec, cfg, cell, mesh)
+        fn, _fake = bundle.step_for_cell(cell)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda",
+                               dtype=torch.int32)
+        if kind == "train":
+            opt = bundle.init_opt(params)
+            labels = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda",
+                                   dtype=torch.int32)
+            args = (params, opt, {"tokens": tokens, "labels": labels})
+        else:
+            args = (params, {"tokens": tokens})
+        real = sum(t.nbytes for t in params.parameters()) + sum(
+            t.nbytes for a in args[1:] for t in tree.leaves(a))
+        check(rec["memory"]["argument_size_in_bytes"] == real,
+              f"launch: olmo {kind}: predicted argument bytes "
+              f"{rec['memory']['argument_size_in_bytes']}, the real arguments hold {real}")
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: f.launches for k, f in K.launch_counters().items() if f.launches}
+        ms = time_ms(lambda: fn(*args), LAUNCH_REPS)
+        per_layer = rec["kernel_calls_per_layer"]
+        check(len(per_layer) == 1, f"launch: olmo {kind}: signatures {per_layer}")
+        layer_flash = next(iter(per_layer.values())).get("flash_attention", 0)
+        if kind == "prefill":
+            check(layer_flash * cfg.num_layers == launches.get("flash_attention", 0)
+                  == rec["kernel_calls"].get("flash_attention"),
+                  f"launch: olmo prefill: {layer_flash} flash calls priced a layer x "
+                  f"{cfg.num_layers} layers against {launches} real launches (the record's "
+                  f"{rec['kernel_calls']})")
+        rf, pa = rec["roofline"], rec["parsed"]
+        cal = {"compute_s": pa["flops_per_device"] / rates.flops_per_s,
+               "memory_s": pa["hbm_bytes_per_device"] / rates.hbm_bytes_per_s}
+        cal["step_time_s"] = max(cal.values())
+        out[kind] = dict(predicted_total=rec["memory"]["per_device_total"], peak=peak,
+                         step_time_s=rf["step_time_s"], ms=ms, calibrated=cal,
+                         priced_calls=rec["kernel_calls"], launches=launches,
+                         layer_flash=layer_flash, memory=rec["memory"])
+        log(f"launch: olmo {kind} {B} x {S} on make_local_mesh(1, 1): argument bytes "
+            f"{real} predicted exactly; per_device_total predicted "
+            f"{rec['memory']['per_device_total'] / 2**30:.2f} GiB (arguments "
+            f"{rec['memory']['argument_size_in_bytes'] / 2**30:.2f}, outputs "
+            f"{rec['memory']['output_size_in_bytes'] / 2**30:.2f}, temp "
+            f"{rec['memory']['temp_size_in_bytes'] / 2**30:.2f}, aliased "
+            f"{rec['memory']['alias_size_in_bytes'] / 2**30:.2f}) against "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; step_time_s predicted "
+            f"{rf['step_time_s'] * 1e3:.2f} ms ({rf['dominant']}: compute "
+            f"{rf['compute_s'] * 1e3:.2f} ms, memory {rf['memory_s'] * 1e3:.2f} ms at the data "
+            f"sheet's 989 TFLOP/s and 3.35 TB/s) against {ms:.2f} ms measured (CUDA events, "
+            f"{LAUNCH_REPS} calls); at calibrate()'s {rates.flops_per_s / 1e12:.1f} TFLOP/s "
+            f"(f32 matmul) and {rates.hbm_bytes_per_s / 1e12:.2f} TB/s: compute "
+            f"{cal['compute_s'] * 1e3:.2f} ms, memory {cal['memory_s'] * 1e3:.2f} ms; "
+            f"kernel calls priced {rec['kernel_calls']} ({layer_flash} flash a layer) against "
+            f"launches {launches} (not held in train) ({gpu})")
+        del args, fn
+    del params, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _submit_dirs():
+    root = os.path.join(HERE, "build", "launch")
+    return root, os.path.join(root, "jobs")
+
+
+def launch_submit_attached(gpu):
+    """``ignis-submit --attach`` of the hybrid wordcount driver on the card:
+    rc 0, ``job.json``'s fields, the ``IGNIS_*`` variables the driver saw,
+    its counts against ``np.bincount``."""
+    import shutil
+
+    from repro_torch.launch import submit
+
+    root, jobs = _submit_dirs()
+    shutil.rmtree(jobs, ignore_errors=True)
+    os.makedirs(jobs)
+    driver = os.path.join(root, "wordcount_driver.py")
+    with open(driver, "w") as f:
+        f.write(WORDCOUNT_DRIVER.format(src=os.path.join(HERE, "src")))
+    report = os.path.join(root, "wordcount_report.json")
+    if os.path.exists(report):
+        os.remove(report)
+    props = {"ignis.device": "cuda", "ignis.executor.instances": "8"}
+    dargs = ["--out", report, "--log2n", str(SUBMIT_LOG2N), "--vocab", str(SUBMIT_VOCAB)]
+    argv = ["--name", "smoke-attached", "--jobs-dir", jobs, "--attach"]
+    for k, v in props.items():
+        argv += ["--properties", f"{k}={v}"]
+    t0 = time.perf_counter()
+    rc = submit.main([*argv, "ignishpc/torch", driver, *dargs])
+    took = time.perf_counter() - t0
+    check(rc == 0, f"launch: submit: the attached driver returned {rc}")
+    with open(os.path.join(jobs, "smoke-attached", "job.json")) as f:
+        spec = json.load(f)
+    want = {"name": "smoke-attached", "image": "ignishpc/torch", "driver": driver,
+            "args": dargs, "properties": props}
+    check(spec == want, f"launch: submit: job.json {spec}, expected {want}")
+    with open(report) as f:
+        rep = json.load(f)
+    env = {k: v for k, v in os.environ.items() if k.startswith("IGNIS_")}
+    env.update({"IGNIS_IGNIS_DEVICE": "cuda", "IGNIS_IGNIS_EXECUTOR_INSTANCES": "8",
+                "IGNIS_JOB_NAME": "smoke-attached"})
+    check(rep["env"] == env, f"launch: submit: the driver saw {rep['env']}, expected {env}")
+    check(rep["ok"] and rep["words"] == 1 << SUBMIT_LOG2N and rep["device_peak_bytes"] > 0,
+          f"launch: submit: the driver's report {rep}")
+    log(f"launch: submit --attach: the wordcount driver ({rep['words']} words, "
+        f"{rep['distinct']} distinct, counts equal np.bincount, launches {rep['launches']}, "
+        f"device peak {rep['device_peak_bytes'] / 2**20:.1f} MiB; in the driver: imports "
+        f"{rep['import_s']:.1f} s, the worker up at {rep['worker_s']:.1f} s, done at "
+        f"{rep['total_s']:.1f} s) returned 0 in {took:.1f} s; "
+        f"job.json and the IGNIS_* environment as given ({gpu})")
+    return dict(attached_s=took, driver=rep)
+
+
+def launch_submit_detached(gpu):
+    """``ignis-submit`` detached: it returns at once; the driver's log line
+    is polled for at most ``SUBMIT_POLL_S`` and its process waited for."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import submit
+
+    root, jobs = _submit_dirs()
+    ldriver = os.path.join(root, "log_driver.py")
+    with open(ldriver, "w") as f:
+        f.write(LOG_DRIVER.format())
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = submit.main(["--name", "smoke-detached", "--jobs-dir", jobs, "ignishpc/torch",
+                          ldriver])
+    check(rc == 0, f"launch: submit: a detached launch returned {rc}")
+    pid = int(buf.getvalue().split("(pid ")[1].split(",")[0])
+    logfile = os.path.join(jobs, "smoke-detached", "driver.log")
+    line, status = "", None
+    while time.perf_counter() - t0 < SUBMIT_POLL_S:
+        with open(logfile) as f:
+            line = f.read()
+        if status is None:
+            try:
+                done, status = os.waitpid(pid, os.WNOHANG)
+                status = status if done else None
+            except ChildProcessError:  # reaped by subprocess' own clean-up: it has exited
+                status = 0
+        if "detached driver ran as job smoke-detached" in line and status is not None:
+            break
+        time.sleep(0.05)
+    if status is None:
+        os.kill(pid, 9)
+        os.waitpid(pid, 0)
+    check("detached driver ran as job smoke-detached" in line,
+          f"launch: submit: the detached driver's log holds {line!r} after {SUBMIT_POLL_S} s")
+    check(status == 0, f"launch: submit: the detached driver exited with status {status}")
+    took = time.perf_counter() - t0
+    log(f"launch: submit (detached): returned at once, the driver's log line came and the "
+        f"driver exited 0 within {took:.2f} s ({gpu})")
+    return dict(detached_s=took)
+
+
+def launch_phase():
+    """Phase 10: the dry run's sweep (``launch_sweep``, its pricing on the
+    CPU's cores) while ``ignis-submit --attach`` runs its driver on the card
+    (``launch_submit_attached``, a thread waiting on the driver's process),
+    then OLMo-1B's two card cells priced and run (``launch_olmo``) and a
+    detached submit (``launch_submit_detached``); the wall time logged
+    against ``LAUNCH_BUDGET_S``."""
+    gpu = card()
+    t0 = time.perf_counter()
+    olmo = _olmo_cells()
+    attached = {}
+
+    def submit_attached():
+        try:
+            attached["out"] = launch_submit_attached(gpu)
+        except BaseException as e:  # raised again below, on the phase's thread
+            attached["error"] = e
+
+    thread = threading.Thread(target=submit_attached, name="submit-attached")
+    thread.start()
+    try:
+        out = {"sweep": launch_sweep(gpu, [("olmo-1b", {"attn_impl": "flash"}, c)
+                                           for c in olmo.values()])}
+    finally:
+        thread.join()
+    if "error" in attached:
+        raise attached["error"]
+    out["olmo"] = launch_olmo(gpu)
+    out["submit"] = {**attached["out"], **launch_submit_detached(gpu)}
+    took = time.perf_counter() - t0
+    out["seconds"] = took
+    log(f"launch: phase took {took:.1f} s ({'within' if took <= LAUNCH_BUDGET_S else 'OVER'} "
+        f"its {LAUNCH_BUDGET_S} s budget; sweep {out['sweep']['seconds']:.1f} s) ({gpu})")
+    return out
+
+
 def flash_row(launches, reps: int):
     """The flash kernel at the serve path's largest prefill shape, timed
     beside its bound, its plain version and torch's fused SDPA."""
@@ -5303,6 +5796,7 @@ def main() -> int:
         log(f"the family serve phases took {time.perf_counter() - t_fam:.1f} s")
         trained = train_phase()
         dist = distributed_phase()
+        launched = launch_phase()
         for row in rows:
             label = TRAIN_KERNEL_RUN.get(row["name"])
             if label:
@@ -5316,6 +5810,8 @@ def main() -> int:
                 row["ep_launches"] = dist["ep"]["launches"]["moe_route"]
             if row["name"] == "flash_attention":
                 row["pipeline_launches"] = dist["pipeline"]["launches"]["flash_attention"]
+                row["dryrun_priced_calls"] = (
+                    launched["olmo"]["prefill"]["priced_calls"]["flash_attention"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -17,3 +17,17 @@ from repro_torch.configs import (  # noqa: F401  (registration)
     whisper_tiny,
     yi_9b,
 )
+
+#: the architectures the dry run sweeps (``launch/dryrun --all``)
+ASSIGNED = [
+    "yi-9b",
+    "qwen3-14b",
+    "gemma3-4b",
+    "olmo-1b",
+    "mamba2-780m",
+    "whisper-tiny",
+    "jamba-1.5-large-398b",
+    "internvl2-1b",
+    "phi3.5-moe-42b-a6.6b",
+    "mixtral-8x7b",
+]

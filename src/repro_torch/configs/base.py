@@ -146,6 +146,17 @@ class ArchConfig:
 
         return analytic_param_count(self, active_only=True)
 
+    def shape_cells(self):
+        """The shape cells this arch runs (others are documented skips)."""
+        cells = []
+        for s in SHAPES.values():
+            if s.kind == "decode" and not self.decode_ok:
+                continue
+            if s.name == "long_500k" and not self.long_context_ok:
+                continue
+            cells.append(s)
+        return cells
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""
         kw = dict(

@@ -46,9 +46,12 @@ from __future__ import annotations
 import contextlib
 import pathlib
 import threading
+from typing import NamedTuple
 
 _sweep = threading.local()
 _priced = threading.local()
+_open_recordings: list = []  # the recording_calls lists open in any thread
+_open_lock = threading.Lock()
 _fake_type = None
 
 #: build directory for compiled kernels (listed in .gitignore)
@@ -66,16 +69,44 @@ def sweeping():
         _sweep.on = prev
 
 
+class KernelCall(NamedTuple):
+    """A kernel call priced on fake tensors: the operations of its work, the
+    bytes it moves, the kernel's name, and how many calls it stands for
+    (more than one inside a traced loop priced once: ``profile.cost.repeated``)."""
+
+    flops: float
+    bytes: float
+    kernel: str
+    count: int = 1
+
+
 @contextlib.contextmanager
 def recording_calls():
     """Collect the kernel calls made on fake tensors inside the block
-    (``fake_call``) in the list it yields, as ``(flops, bytes)`` pairs."""
+    (``fake_call``) in the list it yields, as ``KernelCall``s."""
     prev = getattr(_priced, "calls", None)
     _priced.calls = calls = []
+    with _open_lock:
+        _open_recordings.append(calls)
     try:
         yield calls
     finally:
         _priced.calls = prev
+        with _open_lock:
+            _open_recordings.remove(calls)
+
+
+def _recording():
+    """The list a kernel call on fake tensors is recorded in: this thread's
+    ``recording_calls``, or, on a thread that opened none (autograd runs a
+    CUDA graph's backward on a thread of its own), the one recording open
+    in the process."""
+    calls = getattr(_priced, "calls", None)
+    if calls is None:
+        with _open_lock:
+            if len(_open_recordings) == 1:
+                calls = _open_recordings[0]
+    return calls
 
 
 def is_fake(t) -> bool:
@@ -88,16 +119,17 @@ def is_fake(t) -> bool:
     return isinstance(t, _fake_type)
 
 
-def fake_call(operands, results, flops: float):
-    """A kernel call on fake tensors: nothing runs and no launch is
+def fake_call(operands, results, flops: float, kernel: str):
+    """A call of ``kernel`` on fake tensors: nothing runs and no launch is
     counted. ``results`` (fresh tensors of the kernel's result shapes) are
     returned, and inside ``recording_calls`` the call is recorded with the
     operations of its work and its bytes: each operand read once and each
     result written once."""
-    calls = getattr(_priced, "calls", None)
+    calls = _recording()
     if calls is not None:
-        calls.append((float(flops), float(sum(t.numel() * t.element_size()
-                                              for t in (*operands, *results)))))
+        calls.append(KernelCall(float(flops), float(sum(t.numel() * t.element_size()
+                                                        for t in (*operands, *results))),
+                                kernel))
     return results
 
 

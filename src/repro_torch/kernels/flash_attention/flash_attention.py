@@ -108,7 +108,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, softcap=0.0,
             _check(q, k, v, q_offset, kv_len, window, softcap)
         B, H, Sq, hd = q.shape
         flops = 4 * hd * B * H * live_pairs(Sq, kv_len, causal, window, q_offset)
-        return fake_call((q, k, v), (torch.empty_like(q),), flops)[0]
+        return fake_call((q, k, v), (torch.empty_like(q),), flops, "flash_attention")[0]
     if not q.is_cuda:
         return attention_ref(q, k[:, :, :kv_len], v[:, :, :kv_len], causal=causal,
                              window=window, softcap=softcap, q_offset=q_offset)

@@ -94,7 +94,7 @@ def moe_route_fwd(logits, k: int, capacity: int):
         T = logits.shape[0]
         dev = logits.device
         return fake_call((logits,), tuple(torch.empty((T, k), dtype=dt, device=dev) for dt in (
-            torch.float32, torch.int32, torch.int32, torch.bool)), logits.numel())
+            torch.float32, torch.int32, torch.int32, torch.bool)), logits.numel(), "moe_route")
     if not logits.is_cuda:
         return moe_route_ref(logits, k, capacity)
     _check(logits, k)

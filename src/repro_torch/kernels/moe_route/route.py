@@ -123,7 +123,8 @@ def bucket_route_fwd(dest: torch.Tensor, p: int, capacity: int,
         n, dev = dest.shape[0], dest.device
         return fake_call((dest,), (torch.empty(n, dtype=torch.int32, device=dev),
                                    torch.empty(n, dtype=torch.bool, device=dev),
-                                   torch.empty(int(p), dtype=torch.int32, device=dev)), n)
+                                   torch.empty(int(p), dtype=torch.int32, device=dev)), n,
+                         "bucket_route")
     if not dest.is_cuda:
         return bucket_route_ref(dest, p, capacity)
     p, capacity = int(p), int(capacity)

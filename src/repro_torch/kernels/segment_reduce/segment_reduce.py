@@ -102,7 +102,8 @@ def segment_reduce_fwd(values: torch.Tensor, boundaries: torch.Tensor,
     if is_fake(values):  # a combine per element
         if values.is_cuda:  # priced as the card's call: refused where a launch would be
             _check(values, boundaries)
-        return fake_call((values, boundaries), (torch.empty_like(values),), values.numel())[0]
+        return fake_call((values, boundaries), (torch.empty_like(values),), values.numel(),
+                         "segment_reduce")[0]
     if not values.is_cuda:
         return segment_scan_plain(values, boundaries, op)
     _check(values, boundaries)

@@ -95,7 +95,7 @@ def prefix_scan_fwd(x: torch.Tensor, op: str = "sum", block: int = 512,
     if is_fake(x):  # a combine per element
         if x.is_cuda:  # priced as the card's call: refused where a launch would be
             _check(x)
-        return fake_call((x,), (torch.empty_like(x),), x.numel())[0]
+        return fake_call((x,), (torch.empty_like(x),), x.numel(), "prefix_scan")[0]
     if not x.is_cuda:
         return prefix_scan_ref(x, op, reverse)
     _check(x)

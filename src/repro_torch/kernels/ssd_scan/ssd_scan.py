@@ -86,7 +86,7 @@ def ssd_scan_fwd(x, dt, A_log, Bm, Cm, chunk):
         B, S, H, P = x.shape
         state = torch.empty((B, H, P, Bm.shape[3]), dtype=torch.float32, device=x.device)
         return fake_call((x, dt, A_log, Bm, Cm), (torch.empty_like(x), state),
-                         work_flops(x.shape, Bm.shape, chunk))
+                         work_flops(x.shape, Bm.shape, chunk), "ssd_scan")
     if not x.is_cuda:
         return ssd_ref(x, dt, A_log, Bm, Cm, chunk)
     _check(x, dt, A_log, Bm, Cm, chunk)

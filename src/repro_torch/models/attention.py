@@ -18,6 +18,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import rmsnorm, rope, softcap, weight
+from repro_torch.profile import cost
 
 NEG_INF = -1e30
 GLOBAL_WINDOW = 1 << 30  # "no window" sentinel
@@ -85,13 +86,22 @@ def attend(q, k, v, pos_q, pos_kv, *, window=GLOBAL_WINDOW, causal=True, cap=0.0
     def block(qb, pb):
         return _attend_block(qb, k, v, _mask_bias(pb, pos_kv, window, causal), scale, cap)
 
-    outs = []
-    for i in range(0, Sq, step):
+    def chunk(i):
         qb, pb = qg[:, i:i + step], pos_q[:, i:i + step]
         if remat and i + step <= Sq:
-            outs.append(checkpoint(block, qb, pb, use_reentrant=False))
-        else:
-            outs.append(block(qb, pb))
+            return checkpoint(block, qb, pb, use_reentrant=False)
+        return block(qb, pb)
+
+    n_full = Sq // step
+    if n_full > 1 and not remat and cost.collapses():
+        # a trace for pricing: the whole chunks are identical, so one is
+        # traced and priced n_full times (profile.cost.repeated)
+        with cost.repeated(n_full):
+            outs = [chunk(0)] * n_full
+        if Sq % step:
+            outs.append(chunk(n_full * step))
+    else:
+        outs = [chunk(i) for i in range(0, Sq, step)]
     o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return o.reshape(B, Sq, H, hd)
 

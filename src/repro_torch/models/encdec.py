@@ -184,11 +184,9 @@ def encdec_prefill(params, frames, tokens, cfg, cache_len=None):
     Smax = cache_len or S
     x = _dec_embed(params, tokens)
     pos = _positions(B, S, x.device)
-    L, Senc = len(params.dec_layers), enc_out.shape[1]
-    kv = (L, B, Smax, cfg.num_kv_heads, cfg.head_dim)
-    ks = torch.zeros(kv, dtype=x.dtype, device=x.device)
-    vs = torch.zeros(kv, dtype=x.dtype, device=x.device)
-    kxs, vxs = [], []
+    Senc = enc_out.shape[1]
+    # each layer writes its slots of the stacked caches (no cross-layer op)
+    cache = make_encdec_cache(cfg, B, Smax, Senc, dtype=x.dtype, device=x.device)
     for i, lp in enumerate(params.dec_layers):
         a, (k, v) = attn.attention(apply_norm(x, lp.ln1, cfg.norm_type), lp.self_attn, cfg,
                                    pos)
@@ -197,15 +195,13 @@ def encdec_prefill(params, frames, tokens, cfg, cache_len=None):
                                      cfg, pos, kv=enc_out, causal=False)
         x = x + c
         x = x + gelu_mlp(apply_norm(x, lp.ln2, cfg.norm_type), lp.ffn)
-        ks[i, :, :S] = k
-        vs[i, :, :S] = v
-        kxs.append(kx)
-        vxs.append(vx)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+        cache["k_cross"][i] = kx
+        cache["v_cross"][i] = vx
     h = apply_norm(x, params.dec_norm, cfg.norm_type)
     logits = h[:, -1] @ params.embed.T
-    cache = {"k": ks, "v": vs, "k_cross": torch.stack(kxs), "v_cross": torch.stack(vxs),
-             "pos": torch.full((B,), S, dtype=torch.int32, device=x.device),
-             "enc_len": torch.full((B,), Senc, dtype=torch.int32, device=x.device)}
+    cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return logits, cache
 
 

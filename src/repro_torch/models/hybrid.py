@@ -25,6 +25,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.layers import MLP, Norm, apply_norm, embed_init, lm_loss, mlp, weight
 from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.models.ssm import new_decode_state
 from repro_torch.models.transformer import _dtype, _remat, head_matrix
 
 N_SLOTS = 8  # cfg.attn_period
@@ -50,8 +51,12 @@ class AttnSlot(nn.Module):
 
 
 class MambaSlot(nn.Module):
+    """Mamba slot ``i`` (1 … 7) of a block; ``index`` is ``i`` (an int, not
+    a parameter): its row of the block's ``conv``/``state`` caches."""
+
     def __init__(self, cfg, i, device, generator=None):
         super().__init__()
+        self.index = i
         dt = _dtype(cfg)
         self.ln1 = Norm(cfg.d_model, cfg.norm_type, device)
         self.mixer = mamba2.Mamba2Mixer(cfg, dt, device, generator)
@@ -61,7 +66,10 @@ class MambaSlot(nn.Module):
 
 
 class Block(nn.Module):
-    """``attn`` (the attention slot) and ``s1`` … ``s7`` (the mamba slots)."""
+    """``attn`` (the attention slot) and ``s1`` … ``s7`` (the mamba slots).
+    The block functions run what a block holds: a block without ``attn``
+    (None) or with fewer mamba slots (the dry run prices one slot at a
+    time) runs the rest, each slot's FFN by its own kind."""
 
     def __init__(self, cfg, device, generator=None):
         super().__init__()
@@ -100,9 +108,9 @@ def make_hybrid_params(generator: torch.Generator, cfg) -> HybridLM:
     return HybridLM(cfg, generator=generator)
 
 
-def _ffn_apply(x, sp, i, cfg, aux):
+def _ffn_apply(x, sp, cfg, aux):
     h = apply_norm(x, sp.ln2, cfg.norm_type)
-    if _slot_is_moe(i, cfg):
+    if isinstance(sp.ffn, MoE):
         m, a = moe_apply(h, sp.ffn, cfg)
         return x + m, aux + a
     return x + mlp(h, sp.ffn), aux
@@ -127,10 +135,11 @@ def hybrid_forward(params, tokens, cfg):
     pos = _positions(x)
 
     def block(x, aux, bp):
-        x, _ = _attn_slot(x, bp.attn, cfg, pos)
-        for i, sp in enumerate(bp.slots(), 1):
+        if bp.attn is not None:
+            x, _ = _attn_slot(x, bp.attn, cfg, pos)
+        for sp in bp.slots():
             y, _t, _s = mamba2.mamba_mixer(apply_norm(x, sp.ln1, cfg.norm_type), sp.mixer, cfg)
-            x, aux = _ffn_apply(x + y, sp, i, cfg, aux)
+            x, aux = _ffn_apply(x + y, sp, cfg, aux)
         return x, aux
 
     step = _remat(block, cfg)
@@ -169,28 +178,22 @@ def hybrid_prefill(params, tokens, cfg, cache_len=None):
     mixers' recurrent state; ``pos`` (B,) int32."""
     x = params.embed[tokens.long()]
     B, S, _ = x.shape
-    Smax = cache_len or S
     pos = _positions(x)
-    shape = (len(params.blocks), B, Smax, cfg.num_kv_heads, cfg.head_dim)
-    ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    convs, states = [], []
+    # each block writes its slots of the stacked caches (no cross-block op)
+    cache = make_hybrid_cache(cfg, B, cache_len or S, dtype=x.dtype, device=x.device)
     for b, bp in enumerate(params.blocks):
-        x, (k, v) = _attn_slot(x, bp.attn, cfg, pos)
-        ks[b, :, :S] = k
-        vs[b, :, :S] = v
-        tails, sts = [], []
-        for i, sp in enumerate(bp.slots(), 1):
+        if bp.attn is not None:
+            x, (k, v) = _attn_slot(x, bp.attn, cfg, pos)
+            cache["k"][b, :, :S] = k
+            cache["v"][b, :, :S] = v
+        for sp in bp.slots():
             y, t, s = mamba2.mamba_mixer(apply_norm(x, sp.ln1, cfg.norm_type), sp.mixer, cfg)
-            tails.append(t)
-            sts.append(s)
-            x, _ = _ffn_apply(x + y, sp, i, cfg, 0.0)
-        convs.append(torch.stack(tails))
-        states.append(torch.stack(sts))
+            cache["conv"][b, sp.index - 1] = t
+            cache["state"][b, sp.index - 1] = s
+            x, _ = _ffn_apply(x + y, sp, cfg, 0.0)
     h = apply_norm(x, params.final_norm, cfg.norm_type)
     logits = h[:, -1] @ head_matrix(params, cfg)
-    cache = {"k": ks, "v": vs, "conv": torch.stack(convs), "state": torch.stack(states),
-             "pos": torch.full((B,), S, dtype=torch.int32, device=x.device)}
+    cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return logits, cache
 
 
@@ -201,24 +204,21 @@ def hybrid_decode_step(params, cache, tokens, cfg):
     mixers' ``conv``/``state`` new tensors, as the JAX function returns."""
     x = params.embed[tokens.long()]
     pos = cache["pos"]
-    convs, states = [], []
+    convs, states = new_decode_state(cache, x.dtype)
     for b, bp in enumerate(params.blocks):
         ap = bp.attn
-        a, _, _ = attn.decode_attention(apply_norm(x, ap.ln1, cfg.norm_type), ap.attn, cfg,
-                                        pos, cache["k"][b], cache["v"][b])
-        x = x + a
-        x = x + mlp(apply_norm(x, ap.ln2, cfg.norm_type), ap.ffn)
-        cs, ss = [], []
-        for i, sp in enumerate(bp.slots(), 1):
-            y, c, s = mamba2.mamba_mixer_decode(
-                apply_norm(x, sp.ln1, cfg.norm_type), sp.mixer, cfg,
-                cache["conv"][b, i - 1], cache["state"][b, i - 1])
-            cs.append(c)
-            ss.append(s)
-            x, _ = _ffn_apply(x + y, sp, i, cfg, 0.0)
-        convs.append(torch.stack(cs))
-        states.append(torch.stack(ss))
+        if ap is not None:
+            a, _, _ = attn.decode_attention(apply_norm(x, ap.ln1, cfg.norm_type), ap.attn,
+                                            cfg, pos, cache["k"][b], cache["v"][b])
+            x = x + a
+            x = x + mlp(apply_norm(x, ap.ln2, cfg.norm_type), ap.ffn)
+        for sp in bp.slots():
+            j = sp.index - 1
+            y, convs[b, j], states[b, j] = mamba2.mamba_mixer_decode(
+                apply_norm(x, sp.ln1, cfg.norm_type), sp.mixer, cfg, cache["conv"][b, j],
+                cache["state"][b, j])
+            x, _ = _ffn_apply(x + y, sp, cfg, 0.0)
     h = apply_norm(x, params.final_norm, cfg.norm_type)
     logits = h[:, -1] @ head_matrix(params, cfg)
-    return logits, {"k": cache["k"], "v": cache["v"], "conv": torch.stack(convs),
-                    "state": torch.stack(states), "pos": pos + 1}
+    return logits, {"k": cache["k"], "v": cache["v"], "conv": convs, "state": states,
+                    "pos": pos + 1}

@@ -13,23 +13,32 @@ Bundle surface (everything the launcher and the serving engine need):
   decode_step(params, cache, tokens)        → (logits, cache)
   make_cache(batch, max_len, device="cuda") → cache dict (zeros)
 
+The dry run's abstract surface (``launch/dryrun``), as the JAX bundle's:
+  input_specs(cell)   → the cell's inputs as fake tensors
+  abstract_params()   → the model with fake weights
+  step_for_cell(cell) → (fn, args): the cell's step and its fake arguments
+"Abstract" is fake tensors (``torch._subclasses.FakeTensorMode``, one mode
+per bundle) on the bundle's ``device``: shapes, dtypes and a device, no
+storage, so a 398B model costs no memory; the kernel wrappers price a call
+on them (``repro_torch.kernels.fake_call``) and ``profile.cost.trace``
+traces them.
+
 ``build_module(cfg, device)`` makes a family's module with its weights left
 uninitialised (``interop.params_from_reference`` fills one; on the ``meta``
-device it only counts, as ``analytic_param_count`` does). The dry run's
-surface — ``input_specs``, ``abstract_params`` and ``step_for_cell`` —
-comes with ``launch/dryrun`` (ROADMAP: the rest of ``launch/``).
+device it only counts, as ``analytic_param_count`` does).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from dataclasses import dataclass
-from typing import Callable
+from dataclasses import dataclass, field
+from typing import Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.models import encdec, hybrid, ssm, transformer
-from repro_torch.models.transformer import VIT_DIM  # noqa: F401  (stub InternViT width)
+from repro_torch.models.transformer import VIT_DIM  # the stub InternViT width
 from repro_torch.optim.adamw import adamw_update, init_opt_state, named_tensors
 
 WHISPER_TRAIN_ENC = 1500  # encoder frames for the train cell
@@ -44,6 +53,9 @@ class ModelBundle:
     prefill: Callable
     decode_step: Callable
     make_cache: Callable
+    device: str = "cuda"
+    max_dec: Optional[int] = None
+    _fake: object = field(default=None, repr=False, compare=False)
 
     def value_and_grad(self, params, batch):
         """(loss detached, ``{name: gradient}``) of ``train_loss`` at
@@ -85,6 +97,87 @@ class ModelBundle:
     def init_opt(self, params):
         return init_opt_state(params, getattr(torch, self.cfg.opt_moment_dtype))
 
+    # ------------------------------------------------------------------
+    # abstract inputs per shape cell (fake tensors: no allocation)
+    # ------------------------------------------------------------------
+    def fake_mode(self):
+        """The bundle's ``FakeTensorMode``: every abstract tensor of the
+        bundle is made in it, so a trace can take them together."""
+        if self._fake is None:
+            from torch._subclasses.fake_tensor import FakeTensorMode
+
+            self._fake = FakeTensorMode()
+        return self._fake
+
+    def input_specs(self, cell: ShapeCell) -> dict:
+        cfg = self.cfg
+        B, S = cell.global_batch, cell.seq_len
+        i32, bf16 = torch.int32, torch.bfloat16
+
+        def sds(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=self.device)
+
+        with self.fake_mode():
+            if cfg.family == "audio":
+                if cell.kind == "train":
+                    return {
+                        "frames": sds((B, WHISPER_TRAIN_ENC, cfg.d_model), bf16),
+                        "tokens": sds((B, S), i32),
+                        "labels": sds((B, S), i32),
+                    }
+                if cell.kind == "prefill":
+                    return {
+                        "frames": sds((B, S, cfg.d_model), bf16),
+                        "tokens": sds((B, WHISPER_PREFILL_DEC), i32),
+                    }
+                cache = encdec.make_encdec_cache(cfg, B, S, cfg.enc_seq, device=self.device)
+                return {"cache": cache, "tokens": sds((B, 1), i32)}
+
+            if cfg.family == "vlm":
+                P = cfg.num_patches
+                if cell.kind == "train":
+                    return {
+                        "tokens": sds((B, S - P), i32),
+                        "labels": sds((B, S - P), i32),
+                        "patches": sds((B, P, VIT_DIM), bf16),
+                    }
+                if cell.kind == "prefill":
+                    return {
+                        "tokens": sds((B, S - P), i32),
+                        "patches": sds((B, P, VIT_DIM), bf16),
+                    }
+                return {"cache": self.make_cache(B, S, device=self.device),
+                        "tokens": sds((B, 1), i32)}
+
+            # plain LM families: dense / moe / ssm / hybrid
+            if cell.kind == "train":
+                return {"tokens": sds((B, S), i32), "labels": sds((B, S), i32)}
+            if cell.kind == "prefill":
+                return {"tokens": sds((B, S), i32)}
+            return {"cache": self.make_cache(B, S, device=self.device),
+                    "tokens": sds((B, 1), i32)}
+
+    def abstract_params(self):
+        """The model with fake weights (``init``'s shapes and dtypes)."""
+        with self.fake_mode():
+            return build_module(self.cfg, self.device, max_dec=self.max_dec)
+
+    def step_for_cell(self, cell: ShapeCell):
+        """(callable, abstract-args tuple): the cell's step and its fake
+        arguments, as the JAX bundle's are lowered."""
+        specs = self.input_specs(cell)
+        params = self.abstract_params()
+        if cell.kind == "train":
+            with self.fake_mode():
+                opt = self.init_opt(params)
+            fn = lambda p, o, b: self.train_step(p, o, b)  # noqa: E731
+            return fn, (params, opt, specs)
+        if cell.kind == "prefill":
+            fn = lambda p, inputs: self.prefill(p, **inputs)  # noqa: E731
+            return fn, (params, specs)
+        fn = lambda p, cache, tok: self.decode_step(p, cache, tok)  # noqa: E731
+        return fn, (params, specs["cache"], specs["tokens"])
+
 
 def _max_dec_for(cfg):
     # whisper's learned decoder positions must cover the largest decode cell
@@ -95,9 +188,10 @@ def _max_dec_for(cfg):
 MAX_ENC = 32_768
 
 
-def build_module(cfg: ArchConfig, device=None):
+def build_module(cfg: ArchConfig, device=None, max_dec=None):
     """The family's module on ``device``, weights uninitialised (the audio
-    family's position tables sized as ``build_model``'s default)."""
+    family's decoder position table ``max_dec`` long, by default as
+    ``build_model``'s)."""
     if cfg.family in ("dense", "moe", "vlm"):
         return transformer.TransformerLM(cfg, device=device)
     if cfg.family == "ssm":
@@ -105,7 +199,8 @@ def build_module(cfg: ArchConfig, device=None):
     if cfg.family == "hybrid":
         return hybrid.HybridLM(cfg, device=device)
     if cfg.family == "audio":
-        return encdec.EncDecLM(cfg, device=device, max_dec=_max_dec_for(cfg), max_enc=MAX_ENC)
+        return encdec.EncDecLM(cfg, device=device, max_dec=max_dec or _max_dec_for(cfg),
+                               max_enc=MAX_ENC)
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -120,7 +215,14 @@ def _audio_prefill(cfg):
     return prefill
 
 
-def build_model(cfg: ArchConfig, *, max_dec=None) -> ModelBundle:
+def build_model(cfg: ArchConfig, *, max_dec=None, device="cuda") -> ModelBundle:
+    """``cfg``'s bundle; ``device`` is where its abstract surface makes its
+    fake tensors (``init`` draws on its generator's device)."""
+    return dataclasses.replace(_family_bundle(cfg, max_dec), device=str(device),
+                               max_dec=max_dec)
+
+
+def _family_bundle(cfg: ArchConfig, max_dec) -> ModelBundle:
     f = cfg.family
     if f in ("dense", "moe", "vlm"):
         return ModelBundle(

@@ -87,7 +87,12 @@ def moe_ffn(x, p, cfg, capacity: int | None = None):
     y = torch.zeros((T, D), dtype=x.dtype, device=x.device).index_add_(0, t_flat, contrib)
 
     # Switch-style load balancing: E · Σ_e f_e · P_e
-    f = torch.bincount(e_flat, minlength=E).float() / (T * K)
+    # (bincount's length depends on the data, which a traced program
+    # cannot have: count into E fixed bins instead; f32 counts are exact
+    # below 2^24 assignments)
+    counts = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+        0, e_flat, torch.ones(e_flat.shape, dtype=torch.float32, device=x.device))
+    f = counts / (T * K)
     P = torch.softmax(logits, dim=-1).mean(dim=0)
     aux = E * torch.sum(f * P)
     return y, aux

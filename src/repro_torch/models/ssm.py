@@ -90,17 +90,17 @@ def ssm_prefill(params, tokens, cfg):
     ``conv`` (L, B, width-1, conv_dim) in the activations' dtype, ``state``
     (L, B, H, P, N) f32, ``pos`` (B,) int32."""
     x = params.embed[tokens.long()]
-    tails, states = [], []
-    for lp in params.layers:
+    B = tokens.shape[0]
+    # each layer writes its slot of the stacked state (no cross-layer op)
+    cache = make_ssm_cache(cfg, B, dtype=x.dtype, device=x.device)
+    for i, lp in enumerate(params.layers):
         y, tail, st = mamba2.mamba_mixer(apply_norm(x, lp.ln, cfg.norm_type), lp.mixer, cfg)
         x = x + y
-        tails.append(tail)
-        states.append(st)
+        cache["conv"][i] = tail
+        cache["state"][i] = st
     h = apply_norm(x, params.final_norm, cfg.norm_type)
     logits = h[:, -1] @ head_matrix(params, cfg)
-    B = tokens.shape[0]
-    cache = {"conv": torch.stack(tails), "state": torch.stack(states),
-             "pos": torch.full((B,), tokens.shape[1], dtype=torch.int32, device=x.device)}
+    cache["pos"] = torch.full((B,), tokens.shape[1], dtype=torch.int32, device=x.device)
     return logits, cache
 
 
@@ -109,14 +109,24 @@ def ssm_decode_step(params, cache, tokens, cfg):
     """One decode step. tokens: (B, 1). Returns (logits (B, V), a new cache
     dict), as the JAX function returns one."""
     x = params.embed[tokens.long()]  # (B, 1, D)
-    convs, states = [], []
-    for lp, conv_l, st_l in zip(params.layers, cache["conv"], cache["state"]):
-        y, conv_l, st_l = mamba2.mamba_mixer_decode(
-            apply_norm(x, lp.ln, cfg.norm_type), lp.mixer, cfg, conv_l, st_l)
+    convs, states = new_decode_state(cache, x.dtype)
+    for i, lp in enumerate(params.layers):
+        y, convs[i], states[i] = mamba2.mamba_mixer_decode(
+            apply_norm(x, lp.ln, cfg.norm_type), lp.mixer, cfg, cache["conv"][i],
+            cache["state"][i])
         x = x + y
-        convs.append(conv_l)
-        states.append(st_l)
     h = apply_norm(x, params.final_norm, cfg.norm_type)
     logits = h[:, -1] @ head_matrix(params, cfg)
-    return logits, {"conv": torch.stack(convs), "state": torch.stack(states),
-                    "pos": cache["pos"] + 1}
+    return logits, {"conv": convs, "state": states, "pos": cache["pos"] + 1}
+
+
+def new_decode_state(cache, act_dtype):
+    """Unwritten tensors for a decode step's new ``conv``/``state`` (each
+    layer writes its slot): the conv window in the promoted dtype of the
+    cache and the activations, the state in f32 or wider, as
+    ``mamba_mixer_decode`` returns them."""
+    conv, state = cache["conv"], cache["state"]
+    return (torch.empty(conv.shape, dtype=torch.promote_types(conv.dtype, act_dtype),
+                        device=conv.device),
+            torch.empty(state.shape, dtype=torch.promote_types(state.dtype, torch.float32),
+                        device=state.device))

@@ -35,8 +35,12 @@ def _dtype(cfg) -> torch.dtype:
 
 
 class Layer(nn.Module):
-    def __init__(self, cfg, device, generator=None):
+    """One decoder layer; ``window`` is its attention window (an int, not a
+    parameter: ``layer_windows(cfg)[i]`` for layer ``i``)."""
+
+    def __init__(self, cfg, device, generator=None, window=None):
         super().__init__()
+        self.window = int(attn.GLOBAL_WINDOW if window is None else window)
         self.ln1 = Norm(cfg.d_model, cfg.norm_type, device)
         self.attn = attn.Attention(cfg, _dtype(cfg), device, generator)
         self.ln2 = Norm(cfg.d_model, cfg.norm_type, device)
@@ -67,8 +71,8 @@ class TransformerLM(nn.Module):
         if generator is not None:
             device = generator.device
         self.embed = weight((cfg.vocab_size, cfg.d_model), dt, device, generator, embed_init)
-        self.layers = nn.ModuleList(Layer(cfg, device, generator)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(Layer(cfg, device, generator, w)
+                                    for w in layer_windows(cfg).tolist())
         self.final_norm = Norm(cfg.d_model, cfg.norm_type, device)
         if not cfg.tie_embeddings:
             self.lm_head = weight((cfg.d_model, cfg.vocab_size), dt, device, generator,
@@ -172,8 +176,8 @@ def lm_forward(params, tokens, cfg, patches=None):
 
     step = _remat(layer, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp, window in zip(params.layers, warr.tolist()):
-        x, aux = step(x, aux, lp, window)
+    for lp in params.layers:
+        x, aux = step(x, aux, lp, lp.window)
     return apply_norm(x, params.final_norm, cfg.norm_type), aux
 
 
@@ -211,9 +215,9 @@ def lm_prefill(params, tokens, cfg, cache_len=None, patches=None):
     shape = (cfg.num_layers, B, Smax, cfg.num_kv_heads, cfg.head_dim)
     ks = torch.zeros(shape, dtype=x.dtype, device=x.device)
     vs = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    for i, (lp, window) in enumerate(zip(params.layers, warr.tolist())):
+    for i, lp in enumerate(params.layers):
         a, (k, v) = attn.attention(apply_norm(x, lp.ln1, cfg.norm_type), lp.attn, cfg,
-                                   pos, window=window, static_window=static)
+                                   pos, window=lp.window, static_window=static)
         x = x + a
         h = apply_norm(x, lp.ln2, cfg.norm_type)
         x = x + _ffn(h, lp, cfg)
@@ -243,9 +247,9 @@ def lm_decode_step(params, cache, tokens, cfg):
     """
     x = embed_tokens(params, tokens, cfg)
     pos = cache["pos"]
-    for i, (lp, window) in enumerate(zip(params.layers, layer_windows(cfg).tolist())):
+    for i, lp in enumerate(params.layers):
         a, _, _ = attn.decode_attention(apply_norm(x, lp.ln1, cfg.norm_type), lp.attn, cfg,
-                                        pos, cache["k"][i], cache["v"][i], window=window)
+                                        pos, cache["k"][i], cache["v"][i], window=lp.window)
         x = x + a
         h = apply_norm(x, lp.ln2, cfg.norm_type)
         x = x + _ffn(h, lp, cfg)

@@ -27,9 +27,19 @@ nothing, and a call of one of the port's kernel wrappers prices as one
 kernel call — one dispatch, its operands' and results' bytes, and the
 operations of its work (``repro_torch.kernels.fake_call``) — where the
 reference prices a ``pallas_call`` body once per call.
+
+A loop of identical iterations may be traced once and priced as many
+times (``repeated``; the counterpart of the HLO parser's trip-count
+multiply of ``while`` bodies): the query-chunk loop of the plain attention
+does so inside ``collapsing_loops()``, which the dry run turns on. Each node
+traced in such a region carries its count in ``node.meta["repeat"]``, and
+``price_graph`` and ``memory_walk`` read it, so the collapsed graph prices
+exactly as the unrolled one.
 """
 from __future__ import annotations
 
+import contextlib
+import operator
 import statistics
 import threading
 from collections import deque
@@ -146,6 +156,43 @@ def _op_name(target) -> str:
     return packet.__name__ if packet is not None else getattr(target, "__name__", str(target))
 
 
+def _price_nodes(nodes) -> CostEstimate:
+    """The module docstring's rules over ``nodes`` of an aten graph."""
+    import torch
+
+    flops = hbm = dispatches = 0.0
+    for node in nodes:
+        target = node.target
+        # a higher-order op (``torch.cond``, ``while_loop``) is one op, as
+        # the reference's walker prices ``cond`` and ``while`` (their
+        # bodies sit under params it does not enter); getitem and other
+        # python-level glue are no op at all
+        if node.op != "call_function" or not isinstance(
+                target, (torch._ops.OpOverload, torch._ops.HigherOrderOperator)):
+            continue
+        name = _op_name(target)
+        if name in _ALLOC_OPS:
+            continue
+        k = _repeat(node)
+        out = node.meta.get("val")
+        hbm += k * sum(_nbytes(a.meta.get("val")) for a in _operand_nodes(node))
+        hbm += k * _nbytes(out)
+        dispatches += k
+        if name in _DOT_OPS:
+            flops += k * 2.0 * _nelems(out) * _contracted(node, name)
+        elif name not in _FREE_OPS:
+            flops += k * _nelems(out)
+    return CostEstimate(flops, hbm, 0.0, dispatches)
+
+
+def _price_calls(gm) -> CostEstimate:
+    """The kernel calls a trace met (``gm.meta["kernel_calls"]``)."""
+    est = CostEstimate()
+    for call in gm.meta.get("kernel_calls", ()):
+        est = est + CostEstimate(call.flops, call.bytes, 0.0, 1.0).scaled(call.count)
+    return est
+
+
 class CostModel:
     """See module docstring. Thread-safe: gang tasks consult one model from
     several scheduler threads at once."""
@@ -175,35 +222,22 @@ class CostModel:
         the module docstring's rules, adding the kernel calls its trace met
         (``gm.meta["kernel_calls"]``, set by ``price_fn``). ``nblocks``
         scales the estimate across a node's block loop."""
-        import torch
-
-        flops = hbm = dispatches = 0.0
-        for node in gm.graph.nodes:
-            target = node.target
-            # a higher-order op (``torch.cond``, ``while_loop``) is one op, as
-            # the reference's walker prices ``cond`` and ``while`` (their
-            # bodies sit under params it does not enter); getitem and other
-            # python-level glue are no op at all
-            if node.op != "call_function" or not isinstance(
-                    target, (torch._ops.OpOverload, torch._ops.HigherOrderOperator)):
-                continue
-            name = _op_name(target)
-            if name in _ALLOC_OPS:
-                continue
-            out = node.meta.get("val")
-            hbm += sum(_nbytes(a.meta.get("val")) for a in _operand_nodes(node))
-            hbm += _nbytes(out)
-            dispatches += 1
-            if name in _DOT_OPS:
-                flops += 2.0 * _nelems(out) * _contracted(node, name)
-            elif name not in _FREE_OPS:
-                flops += _nelems(out)
-        est = CostEstimate(flops, hbm, 0.0, dispatches)
-        for call_flops, call_bytes in gm.meta.get("kernel_calls", ()):
-            est = est + CostEstimate(call_flops, call_bytes, 0.0, 1.0)
+        est = _price_nodes(gm.graph.nodes) + _price_calls(gm)
         with self._lock:
             self.stats["jaxprs_priced"] += 1
         return est.scaled(nblocks)
+
+    def price_parts(self, gm, mark: str) -> tuple:
+        """``price_graph``'s estimate cut at a ``mark``: (the nodes up to and
+        including the marked one and every kernel call, the nodes after
+        it). A step marked after its gradients splits so into its forward
+        and backward, and its optimizer update (which calls no kernel)."""
+        nodes = list(gm.graph.nodes)
+        cut = next(i for i, n in enumerate(nodes) if n.meta.get("mark") == mark) + 1
+        before = _price_nodes(nodes[:cut]) + _price_calls(gm)
+        with self._lock:
+            self.stats["jaxprs_priced"] += 1
+        return before, _price_nodes(nodes[cut:])
 
     def price_hlo(self, hlo_text: str, collective: bool = True) -> CostEstimate:
         """Price compiled HLO text through the port's copy of the parser
@@ -330,7 +364,8 @@ class CostModel:
 def trace(fn, *tensors):
     """``fn`` traced to an aten-level ``GraphModule`` on fake copies of
     ``tensors`` (``make_fx``, fake mode: no data is read and nothing runs
-    on a device). The port's kernel calls met in the trace are recorded, as ``(flops, bytes)`` pairs, in ``gm.meta["kernel_calls"]``."""
+    on a device). The port's kernel calls met in the trace are recorded, as
+    ``KernelCall``s, in ``gm.meta["kernel_calls"]``."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     from repro_torch.kernels import recording_calls
@@ -339,3 +374,140 @@ def trace(fn, *tensors):
         gm = make_fx(fn, tracing_mode="fake")(*tensors)
     gm.meta["kernel_calls"] = tuple(calls)
     return gm
+
+
+# ---------------------------------------------------------------------------
+# loops traced once, marks, and the live-memory walk
+# ---------------------------------------------------------------------------
+
+_loops = threading.local()
+
+
+def _repeat(node) -> int:
+    return node.meta.get("repeat", (1, None))[0]
+
+
+def _graph_in_trace():
+    """The graph ``make_fx`` is building on this thread, or None."""
+    from torch.fx.experimental.proxy_tensor import get_proxy_mode
+
+    mode = get_proxy_mode()
+    return None if mode is None else mode.tracer.graph
+
+
+@contextlib.contextmanager
+def collapsing_loops():
+    """Inside the block, a loop that asks (``collapses()``) traces one of its
+    identical iterations under ``repeated``."""
+    prev = getattr(_loops, "on", False)
+    _loops.on = True
+    try:
+        yield
+    finally:
+        _loops.on = prev
+
+
+def collapses() -> bool:
+    """Whether a loop traced now may trace one iteration for all of them:
+    inside ``collapsing_loops()`` and a ``make_fx`` trace."""
+    return getattr(_loops, "on", False) and _graph_in_trace() is not None
+
+
+@contextlib.contextmanager
+def repeated(count: int):
+    """The ops traced inside the block stand for ``count`` copies of
+    themselves (one iteration of a loop of ``count`` identical ones): each
+    node traced here gets ``meta["repeat"] = (count, region)``, and each
+    kernel call recorded here ``count`` calls. Nested regions multiply."""
+    from repro_torch.kernels import _priced
+
+    graph = _graph_in_trace()
+    if graph is None:
+        raise RuntimeError("repeated() outside a make_fx trace")
+    start = len(graph.nodes)
+    calls = getattr(_priced, "calls", None)
+    n_calls = len(calls) if calls is not None else 0
+    yield
+    region = object()
+    for node in list(graph.nodes)[start:]:
+        k, _ = node.meta.get("repeat", (1, None))
+        node.meta["repeat"] = (k * count, region)
+    if calls is not None:
+        for i in range(n_calls, len(calls)):
+            calls[i] = calls[i]._replace(count=calls[i].count * count)
+
+
+def mark(name: str) -> None:
+    """Name the point a trace has reached (the last node traced so far
+    gets ``meta["mark"] = name``); ``memory_walk`` reports the live bytes
+    there. Outside a trace, nothing."""
+    graph = _graph_in_trace()
+    if graph is not None and len(graph.nodes):
+        list(graph.nodes)[-1].meta["mark"] = name
+
+
+def _aliases(node) -> bool:
+    """Whether a node's result shares its first operand's storage (a view,
+    an in-place op, ``getitem`` of a multi-result op)."""
+    import torch
+
+    if node.target is operator.getitem:
+        return True
+    schema = getattr(node.target, "_schema", None)
+    if not isinstance(node.target, torch._ops.OpOverload) or schema is None:
+        return False
+    return any(r.alias_info is not None for r in schema.returns)
+
+
+def memory_walk(gm) -> dict:
+    """The bytes of live intermediates as the graph runs in order: each
+    allocating node's result lives from its node to the last use of it or
+    of a view of it; views and in-place results allocate nothing; inputs,
+    constants (weights) and the graph's outputs are not intermediates. A
+    result made inside a ``repeated`` region that outlives the region
+    counts once per copy. Returns ``{"peak": bytes, "marks": {name: live
+    bytes after the marked node}}``."""
+    nodes = list(gm.graph.nodes)
+    index = {n: i for i, n in enumerate(nodes)}
+    owner, size = {}, {}
+    for n in nodes:
+        if n.op != "call_function":
+            owner[n] = None
+            continue
+        ops = _operand_nodes(n)
+        if _aliases(n) and ops:
+            owner[n] = owner.get(ops[0])
+        else:
+            owner[n] = n
+            size[n] = _nbytes(n.meta.get("val"))
+    last = {}
+    for n in nodes:
+        for a in _operand_nodes(n):
+            o = owner.get(a)
+            if o is not None:
+                last[o] = max(last.get(o, 0), index[n])
+    outputs = {owner.get(a) for n in nodes if n.op == "output" for a in _operand_nodes(n)}
+    region_end = {}
+    for n in nodes:
+        k, region = n.meta.get("repeat", (1, None))
+        if region is not None:
+            region_end[region] = index[n]
+    frees = {}
+    for o, i in last.items():
+        frees.setdefault(i, []).append(o)
+    live = peak = 0
+    held, marks = {}, {}
+    for i, n in enumerate(nodes):
+        if owner.get(n) is n and n not in outputs:
+            k, region = n.meta.get("repeat", (1, None))
+            b = size[n] * (k if region is not None and last.get(n, i) > region_end[region] else 1)
+            held[n] = b
+            live += b
+            peak = max(peak, live)
+        for o in frees.get(i, ()):
+            live -= held.pop(o, 0)
+        if n not in last and n in held:  # never used
+            live -= held.pop(n)
+        if "mark" in n.meta:
+            marks[n.meta["mark"]] = live
+    return {"peak": peak, "marks": marks}
