@@ -33,6 +33,7 @@ from typing import Any, Callable, Optional
 from repro_torch.core import comm, faults
 from repro_torch.core.dag import _OverlayMemo
 from repro_torch.core.metrics import Counters, MetricsTree, warn_deprecated
+from repro_torch.profile import spans
 
 _task_ids = itertools.count()
 
@@ -48,6 +49,16 @@ def task_history_key(task) -> tuple:
     if node is not None:
         return (task.kind, node_sig(node))
     return (task.kind, task.name.split("(", 1)[0])
+
+
+def _run_body(task) -> Any:
+    """Run ``task``'s fn with the thread's program spans (profile/spans.py)
+    going to the tracer attached to its job, else to its worker's."""
+    tracer = task.tracer or getattr(task.worker, "tracer", None)
+    if tracer is None:
+        return task.fn()
+    with spans.recording(tracer.buffer):
+        return task.fn()
 
 
 PENDING = "pending"
@@ -460,10 +471,10 @@ class JobScheduler:
                         if worker is not None and hasattr(worker, "use_group"):
                             with worker.use_group(task.group):
                                 with comm.track() as pending:
-                                    task.result = task.fn()
+                                    task.result = _run_body(task)
                         else:
                             with comm.track() as pending:
-                                task.result = task.fn()
+                                task.result = _run_body(task)
                         # a task completes only when its collectives do:
                         # await a handle-valued result (MPI_Wait on the
                         # device; releases the GIL and — when safe — the

@@ -22,6 +22,8 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.profile.spans import span
+
 BOS, EOS, PAD = 256, 257, 258
 VOCAB = 259  # bytes + specials
 
@@ -157,15 +159,16 @@ class TrainPipeline:
         return self
 
     def __next__(self):
-        item = self._q.get()
-        if item is None:
-            raise StopIteration
-        batch, done = item
-        if done is not None:
-            consumer = torch.cuda.current_stream(self._device)
-            consumer.wait_event(done)
-            for t in batch.values():
-                t.record_stream(consumer)
+        with span("feed.wait"):
+            item = self._q.get()
+            if item is None:
+                raise StopIteration
+            batch, done = item
+            if done is not None:
+                consumer = torch.cuda.current_stream(self._device)
+                consumer.wait_event(done)
+                for t in batch.values():
+                    t.record_stream(consumer)
         return batch
 
     def close(self):

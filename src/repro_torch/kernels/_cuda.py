@@ -22,6 +22,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 
 from repro_torch.kernels import BUILD_DIR
 
@@ -31,9 +32,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-#: ``{source name: nvcc's output}`` of the builds this process made
-#: (``-Xptxas=-v``: registers, shared memory and spills of each kernel)
-build_logs: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -53,23 +51,31 @@ def library_path(name: str) -> pathlib.Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed (the
+    program span ``kernel.build``: the library, the seconds, and whether
+    nvcc ran or the cached library was found)."""
+    from repro_torch.profile.spans import span
+
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        out = library_path(name)
-        if not out.exists():
-            out.parent.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {name}.cu "
-                                   f"(exit {r.returncode}):\n{r.stderr[-8000:]}")
-            build_logs[name] = r.stderr
-            os.replace(tmp, out)
-        lib = _libs[name] = ctypes.CDLL(str(out))
+        with span("kernel.build") as sp:
+            out = library_path(name)
+            built = not out.exists()
+            if built:
+                out.parent.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+                cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                r = subprocess.run(cmd, capture_output=True, text=True)
+                if r.returncode != 0:
+                    raise RuntimeError(f"nvcc failed to build {name}.cu "
+                                       f"(exit {r.returncode}):\n{r.stderr[-8000:]}")
+                os.replace(tmp, out)
+            lib = _libs[name] = ctypes.CDLL(str(out))
+            if sp:
+                sp.args.update(library=out.name, seconds=time.perf_counter() - sp.t0,
+                               nvcc=built)
         return lib
 
 

@@ -48,6 +48,7 @@ from repro_torch.distributed.sharding import (
 from repro_torch.interop import load_reference, opt_from_reference, opt_tree, reference_tree
 from repro_torch.models import build_model
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.profile.spans import span
 
 
 def make_train_step(bundle, cfg, *, compression="none", peak_lr=3e-4,
@@ -55,11 +56,16 @@ def make_train_step(bundle, cfg, *, compression="none", peak_lr=3e-4,
     from repro_torch.optim.adamw import adamw_update
 
     def step(params, opt, ef, batch):
-        loss, grads = bundle.value_and_grad(params, batch)
-        if compression != "none":
-            grads, ef = compressed_grads(grads, ef, compression)
-        lr = warmup_cosine(opt["step"], peak_lr, warmup, total)
-        params, opt = adamw_update(grads, opt, params, lr=lr)
+        tokens = batch["tokens"]
+        with span("train.step", tokens):
+            loss, grads = bundle.value_and_grad(params, batch)
+            if compression != "none":
+                grads, ef = compressed_grads(grads, ef, compression)
+            lr = warmup_cosine(opt["step"], peak_lr, warmup, total)
+            with span("train.optimizer", tokens) as sp:
+                if sp:
+                    sp.args["leaves"] = len(grads)
+                params, opt = adamw_update(grads, opt, params, lr=lr)
         return params, opt, ef, loss
 
     return step

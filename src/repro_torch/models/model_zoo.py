@@ -40,6 +40,7 @@ from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.transformer import VIT_DIM  # the stub InternViT width
 from repro_torch.optim.adamw import adamw_update, init_opt_state, named_tensors
+from repro_torch.profile.spans import span
 
 WHISPER_TRAIN_ENC = 1500  # encoder frames for the train cell
 WHISPER_PREFILL_DEC = 256  # decoder prompt length for the prefill cell
@@ -61,8 +62,11 @@ class ModelBundle:
         """(loss detached, ``{name: gradient}``) of ``train_loss`` at
         ``batch`` (``jax.value_and_grad``)."""
         named = named_tensors(params)
-        loss = self.train_loss(params, batch)
-        grads = torch.autograd.grad(loss, list(named.values()))
+        leaf = next(iter(named.values()))
+        with span("train.forward", leaf):
+            loss = self.train_loss(params, batch)
+        with span("train.backward", leaf):
+            grads = torch.autograd.grad(loss, list(named.values()))
         return loss.detach(), dict(zip(named, grads))
 
     def train_step(self, params, opt_state, batch, lr=3e-4):
@@ -218,8 +222,19 @@ def _audio_prefill(cfg):
 def build_model(cfg: ArchConfig, *, max_dec=None, device="cuda") -> ModelBundle:
     """``cfg``'s bundle; ``device`` is where its abstract surface makes its
     fake tensors (``init`` draws on its generator's device)."""
-    return dataclasses.replace(_family_bundle(cfg, max_dec), device=str(device),
-                               max_dec=max_dec)
+    bundle = _family_bundle(cfg, max_dec)
+    return dataclasses.replace(bundle, device=str(device), max_dec=max_dec,
+                               prefill=_spanned_prefill(bundle.prefill))
+
+
+def _spanned_prefill(prefill):
+    """``prefill`` inside the program span ``model.prefill``, which ends when
+    the model's work is enqueued, whatever wraps the bundle's prefill."""
+    @functools.wraps(prefill)
+    def run(*args, **kw):
+        with span("model.prefill"):
+            return prefill(*args, **kw)
+    return run
 
 
 def _family_bundle(cfg: ArchConfig, max_dec) -> ModelBundle:

@@ -15,12 +15,52 @@ interleave, while same-thread spans always nest. The exporter therefore
 keys ``tid`` on the executing thread and carries the lane/gang label in
 ``args["lane"]``, which is what the schema tests validate
 (tests/test_torch_profile.py).
+
+Beside the scheduler's and the engine's spans, the port's own code opens
+program spans (``span``, cat ``"program"``) at the boundaries of the serve
+engine, the front door's tick, the train step and the kernel builds. A
+program span is recorded only while recording is on: while the thread
+records into an attached ``JobTracer``'s buffer (``recording``: the
+scheduler does it for a task whose job or worker has a tracer; code outside
+the scheduler, such as a train loop, runs inside ``tracer.recording()``),
+or while a ``torch.profiler`` session records, into the process-wide
+``PROFILED`` buffer (the newest 32,768; the older ones dropped and counted).
+Off, a span costs one check and allocates nothing. Each span also opens
+``torch.profiler.record_function(name)`` for its interval; the train spans
+record CUDA events at their start and end (``Span.device_ms``). Names,
+args and nesting (children indented, per thread)::
+
+    serve.tick             tick, retired, handoff_ms    streaming/serve.py
+      engine.step          live, queue                  serving/engine.py
+        engine.admit       prefills
+          engine.prefill   rid, tokens, queue_ms
+            launch         until bundle.prefill returns
+              model.prefill  the bundle's own prefill   models/model_zoo.py
+            readback       int(argmax): the host blocked on the device
+            splice
+        engine.decode      live
+          launch           until decode_step returns
+          readback         argmax(...).cpu()
+    feed.wait                                           data/pipeline.py
+    train.step                                          launch/train.py
+      train.forward, train.backward                     models/model_zoo.py
+      train.optimizer      leaves
+    kernel.build           library, seconds, nvcc       kernels/_cuda.py
+
+``handoff_ms`` is the tick's wait from its submission (``JobTask.t_submit``)
+to the span's start; ``queue_ms`` a request's from ``ServeEngine.submit``
+to its prefill's start.
 """
 from __future__ import annotations
 
 import json
 import threading
+import time
+from collections import deque
 from dataclasses import dataclass, field
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 @dataclass(frozen=True)
@@ -31,21 +71,34 @@ class Span:
     t1: float
     tid: int       # executing thread id
     args: dict = field(default_factory=dict)  # lane, kind, attempt, ...
+    # a program span of device work: CUDA events recorded on the current
+    # stream at its start and end (not exported)
+    events: tuple = field(default=(), compare=False, repr=False)
 
     @property
     def dur(self) -> float:
         return self.t1 - self.t0
 
+    @property
+    def device_ms(self):
+        """Milliseconds on the device between the span's CUDA events (the
+        events must have completed), or None for a span without them."""
+        return self.events[0].elapsed_time(self.events[1]) if self.events else None
+
 
 class TraceBuffer:
-    """Append-only, thread-safe span store for one tracer."""
+    """Thread-safe span store for one tracer; with ``maxlen`` it keeps the
+    newest ``maxlen`` spans and counts the older ones it drops."""
 
-    def __init__(self):
+    def __init__(self, maxlen: int | None = None):
         self._lock = threading.Lock()
-        self._spans: list[Span] = []
+        self._spans: deque[Span] = deque(maxlen=maxlen)
+        self.dropped = 0
 
     def add(self, span: Span):
         with self._lock:
+            if len(self._spans) == self._spans.maxlen:
+                self.dropped += 1
             self._spans.append(span)
 
     def record(self, name: str, cat: str, t0: float, t1: float,
@@ -57,6 +110,11 @@ class TraceBuffer:
         with self._lock:
             return list(self._spans)
 
+    def between(self, t0: float, t1: float) -> list[Span]:
+        """The spans that lie wholly inside ``[t0, t1]``."""
+        with self._lock:
+            return [s for s in self._spans if t0 <= s.t0 and s.t1 <= t1]
+
     def __len__(self):
         with self._lock:
             return len(self._spans)
@@ -64,6 +122,101 @@ class TraceBuffer:
     def clear(self):
         with self._lock:
             self._spans.clear()
+            self.dropped = 0
+
+
+#: where program spans go while a ``torch.profiler`` session records and the
+#: thread records into no tracer: the newest 32,768 (each with a few args)
+PROFILED = TraceBuffer(maxlen=1 << 15)
+
+_local = threading.local()  # .buffer: the tracer buffer this thread records into
+
+
+class recording:
+    """While the block runs, the calling thread records its program spans
+    into ``buffer`` (a tracer's), or into none but ``PROFILED`` where
+    ``buffer`` is None; the thread's earlier buffer is restored after."""
+
+    __slots__ = ("buffer", "_prev")
+
+    def __init__(self, buffer: TraceBuffer | None):
+        self.buffer = buffer
+
+    def __enter__(self):
+        self._prev = getattr(_local, "buffer", None)
+        _local.buffer = self.buffer
+        return self.buffer
+
+    def __exit__(self, *exc):
+        _local.buffer = self._prev
+        return False
+
+
+class _Off:
+    """The span of code that runs while recording is off: does nothing."""
+
+    __slots__ = ()
+
+    def __bool__(self):
+        return False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Open:
+    """A program span being recorded: ``args`` takes its counts."""
+
+    __slots__ = ("buffer", "name", "args", "events", "t0", "_annotation")
+
+    def __init__(self, buffer: TraceBuffer, name: str, device):
+        self.buffer, self.name, self.args = buffer, name, {}
+        self.events = ()
+        device = getattr(device, "device", device)  # a tensor's
+        if device is not None and torch.device(device).type == "cuda":
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+
+    def __bool__(self):
+        return True
+
+    def __enter__(self):
+        self._annotation = torch.profiler.record_function(self.name)
+        self._annotation.__enter__()
+        if self.events:
+            self.events[0].record()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        if self.events:
+            self.events[1].record()
+        self._annotation.__exit__(*exc)
+        self.buffer.add(Span(self.name, "program", self.t0, t1, threading.get_ident(),
+                             self.args, self.events))
+        return False
+
+
+def span(name: str, device=None):
+    """A program span named ``name`` around a ``with`` block, recorded (with
+    a ``torch.profiler.record_function`` of the same name, on the
+    profiler's timeline) only while recording is on. ``device`` names the
+    device of the block's work (or is a tensor on it); on a CUDA device the
+    span takes CUDA events at its start and end (``Span.device_ms``). The
+    span is falsy while off, so callers fill its ``args`` under ``if sp:``."""
+    buffer = getattr(_local, "buffer", None)
+    if buffer is None:
+        if not _autograd_profiler._is_profiler_enabled:
+            return _OFF
+        buffer = PROFILED
+    return _Open(buffer, name, device)
 
 
 def to_chrome(spans: list[Span], process_name: str = "ignis") -> dict:

@@ -10,6 +10,11 @@ after::
     ... run actions ...
     tracer.save("trace.json")     # open in chrome://tracing / Perfetto
 
+The tasks of an attached job or worker also record the port's program
+spans (``spans.span``: the serve engine, the front door's tick) into the
+tracer's buffer; code that runs outside the scheduler, such as a train
+loop, records them inside ``with tracer.recording():``.
+
 Task phases come from timestamps the scheduler already stamps on each
 ``JobTask`` (core/job.py): ``t_start``→``t_end`` is the task body,
 ``t_lock_wait`` the serialisation-lock wait that preceded it,
@@ -27,7 +32,7 @@ import threading
 import time
 
 from repro_torch.profile.cost import CostModel
-from repro_torch.profile.spans import Span, TraceBuffer, save_chrome, to_chrome
+from repro_torch.profile.spans import Span, TraceBuffer, recording, save_chrome, to_chrome
 
 
 def task_lane(task) -> str:
@@ -70,6 +75,7 @@ class JobTracer:
         tree; also adopts the worker engine's cost model so observations
         and decisions share state."""
         worker.engine.trace_hook = self.buffer.record
+        worker.tracer = self  # the scheduler records its tasks' program spans here
         if getattr(worker.engine, "cost_model", None) is not None:
             self.cost = worker.engine.cost_model
         if hasattr(worker, "mount_metrics"):
@@ -86,8 +92,15 @@ class JobTracer:
             if job.tracer is self:
                 job.tracer = None
         for w in workers:
-            if getattr(w.engine, "trace_hook", None) is self.buffer.record:
+            if getattr(w.engine, "trace_hook", None) == self.buffer.record:
                 w.engine.trace_hook = None
+            if getattr(w, "tracer", None) is self:
+                w.tracer = None
+
+    def recording(self) -> recording:
+        """A context in which the calling thread records its program spans
+        (``spans.span``) into this tracer's buffer."""
+        return recording(self.buffer)
 
     # ------------------------------------------------------------------
     # scheduler callback (core/job.py `_run_locked` end)

@@ -23,12 +23,15 @@ recurrent state in slot 0.
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.profile.spans import span
 
 
 @dataclass
@@ -41,6 +44,7 @@ class Request:
     tokens: list = field(default_factory=list)
     done: bool = False
     truncated: bool = False
+    t_submit: float = 0.0  # perf_counter at ServeEngine.submit
 
 
 class ServeEngine:
@@ -64,6 +68,7 @@ class ServeEngine:
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
+        req.t_submit = time.perf_counter()
         self.queue.append(req)
 
     def _finish_check(self, req: Request, tok: int) -> bool:
@@ -76,49 +81,76 @@ class ServeEngine:
         return req.done
 
     def _admit(self):
-        for s in range(self.slots):
-            if self.live[s] is not None:
-                continue
-            while self.queue:
-                req = self.queue.popleft()
-                self._prefill_into_slot(s, req)
-                # the prefill already produced a token: a request done at its
-                # first token retires without ever occupying the slot
-                if self._finish_check(req, req.tokens[-1]):
-                    self.retired.append(req)
-                    continue  # slot still free: admit the next waiter
-                self.live[s] = req
-                break
+        prefills = 0
+        with span("engine.admit") as sp:
+            for s in range(self.slots):
+                if self.live[s] is not None:
+                    continue
+                while self.queue:
+                    req = self.queue.popleft()
+                    self._prefill_into_slot(s, req)
+                    prefills += 1
+                    # the prefill already produced a token: a request done at
+                    # its first token retires without ever occupying the slot
+                    if self._finish_check(req, req.tokens[-1]):
+                        self.retired.append(req)
+                        continue  # slot still free: admit the next waiter
+                    self.live[s] = req
+                    break
+            if sp:
+                sp.args["prefills"] = prefills
 
     def _prefill_into_slot(self, s: int, req: Request):
-        """Single-request prefill, then splice its cache rows into slot s."""
-        tokens = torch.as_tensor(np.asarray(req.prompt, np.int32), device=self.device)[None]
-        logits, cache1 = self.bundle.prefill(self.params, tokens=tokens)
-        first = int(torch.argmax(logits[0]))
-        req.tokens.append(first)
-        self._last[s] = first
-        _splice(self.cache, cache1, s, self.cache_len)
+        """Single-request prefill, then splice its cache rows into slot s.
+        Its program span's ``launch`` ends when the bundle's prefill
+        returns, ``readback`` is the host waiting for the first token."""
+        with span("engine.prefill") as sp:
+            if sp:
+                sp.args.update(rid=req.rid, tokens=len(req.prompt),
+                               queue_ms=(sp.t0 - req.t_submit) * 1e3)
+            with span("launch"):
+                tokens = torch.as_tensor(np.asarray(req.prompt, np.int32),
+                                         device=self.device)[None]
+                logits, cache1 = self.bundle.prefill(self.params, tokens=tokens)
+            with span("readback"):
+                first = int(torch.argmax(logits[0]))
+            req.tokens.append(first)
+            self._last[s] = first
+            with span("splice"):
+                _splice(self.cache, cache1, s, self.cache_len)
 
     # ------------------------------------------------------------------
     def step(self) -> int:
-        """Admit + one batched decode tick. Returns #live requests."""
-        self._admit()
-        if not any(r is not None for r in self.live):
-            return 0
-        toks = torch.as_tensor(self._last, device=self.device)[:, None]
-        logits, self.cache = self.bundle.decode_step(self.params, self.cache, toks)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
-        for s, req in enumerate(self.live):
-            if req is None:
-                continue
-            tok = int(nxt[s])
-            req.tokens.append(tok)
-            self._last[s] = tok
-            if self._finish_check(req, tok):
-                self.retired.append(req)
-                self.live[s] = None  # slot freed; stale cache rows are
-                # harmless: admission overwrites them via _splice
-        return sum(r is not None for r in self.live)
+        """Admit + one batched decode tick. Returns #live requests. Its
+        program span's decode ``launch`` ends when ``decode_step`` returns,
+        ``readback`` is the host waiting for the next tokens."""
+        with span("engine.step") as sp:
+            if sp:
+                sp.args.update(live=sum(r is not None for r in self.live),
+                               queue=len(self.queue))
+            self._admit()
+            if not any(r is not None for r in self.live):
+                return 0
+            with span("engine.decode") as dp:
+                if dp:
+                    dp.args["live"] = sum(r is not None for r in self.live)
+                with span("launch"):
+                    toks = torch.as_tensor(self._last, device=self.device)[:, None]
+                    logits, self.cache = self.bundle.decode_step(self.params, self.cache,
+                                                                 toks)
+                with span("readback"):
+                    nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+            for s, req in enumerate(self.live):
+                if req is None:
+                    continue
+                tok = int(nxt[s])
+                req.tokens.append(tok)
+                self._last[s] = tok
+                if self._finish_check(req, tok):
+                    self.retired.append(req)
+                    self.live[s] = None  # slot freed; stale cache rows are
+                    # harmless: admission overwrites them via _splice
+            return sum(r is not None for r in self.live)
 
     def run_to_completion(self, max_ticks: int = 10_000) -> list[Request]:
         """Tick until queue and slots drain; returns (and clears) the

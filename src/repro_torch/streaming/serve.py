@@ -16,11 +16,13 @@ tick, so retried ticks never double-decode.
 """
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from typing import Optional
 
 from repro_torch.core.job import IFuture, JobTask
+from repro_torch.profile.spans import span
 from repro_torch.serving.engine import Request
 
 
@@ -101,23 +103,29 @@ class ServeFrontDoor:
         return ticket
 
     # ------------------------------------------------------------------
-    def _tick_fn(self):
-        """One engine tick under the serve group's lock. Retirement drains
-        through the engine's ``retired`` list (the same channel
+    def _tick_fn(self, task: JobTask, tick: int):
+        """One engine tick under the serve group's lock (the program span
+        ``serve.tick``, whose ``handoff_ms`` is the scheduler's hand-off
+        from the tick's submission to its start). Retirement drains through
+        the engine's ``retired`` list (the same channel
         ``run_to_completion`` uses), so a request admitted and finished
         within this very tick resolves its ticket here."""
-        self.engine.step()
-        retired, self.engine.retired = self.engine.retired, []
-        out = []
-        with self._lock:
-            for req in retired:
-                ticket = self._tickets.pop(req.rid, None)
-                if ticket is None:
-                    continue
-                ticket._resolve()
-                self.completed.append(ticket)
-                self.telemetry.record_completed(ticket.tenant, ticket.latency_ms)
-                out.append(ticket)
+        with span("serve.tick") as sp:
+            self.engine.step()
+            retired, self.engine.retired = self.engine.retired, []
+            out = []
+            with self._lock:
+                for req in retired:
+                    ticket = self._tickets.pop(req.rid, None)
+                    if ticket is None:
+                        continue
+                    ticket._resolve()
+                    self.completed.append(ticket)
+                    self.telemetry.record_completed(ticket.tenant, ticket.latency_ms)
+                    out.append(ticket)
+            if sp:
+                sp.args.update(tick=tick, retired=len(out),
+                               handoff_ms=1e3 * (sp.t0 - task.t_submit))
         return out
 
     def tick_async(self) -> IFuture:
@@ -126,11 +134,13 @@ class ServeFrontDoor:
         among themselves while the scheduler interleaves them with
         ingestion micro-batches on other groups."""
         deps = [self._prev_tick] if self._prev_tick is not None else []
-        task = JobTask(f"{self.name}.tick#{self._tick_no}", "serve",
-                       self.worker, self._tick_fn, deps, group=self.group)
+        task = JobTask(f"{self.name}.tick#{self._tick_no}", "serve", self.worker,
+                       None, deps, group=self.group)
+        task.fn = functools.partial(self._tick_fn, task, self._tick_no)
         self._tick_no += 1
         self._prev_tick = task
         if self.job is not None:
+            task.tracer = self.job.tracer  # as IJob's own submissions do
             self.job.tasks.append(task)
         self.scheduler.submit(task)
         return IFuture(task)
