@@ -23,8 +23,9 @@ shapes those paths gave it, and reports. Run from the repository root:
 Phases, all of them on every run (each prints its lines; any failure exits
 non-zero):
 
-1. build   — one ``nvcc`` per CUDA source (flash attention, SSD scan, MoE
-             router, the segmented and prefix scans, bucket router;
+1. build   — one ``nvcc`` per CUDA source (flash attention, decode
+             attention, SSD scan, MoE router, the segmented and prefix
+             scans, bucket router;
              ``sm_90a``, into ``build/kernels/cuda``, where the port's
              loader finds them), all started at once; then the registry's
              capability probes, each kernel's first launch (flash on both
@@ -35,7 +36,10 @@ non-zero):
              flash kernel over dtypes, GQA groups, head dims, masks and
              ragged lengths (in bf16 also lengths of several of its tiles,
              up to 2048), each case counted under the route the wrapper
-             names for it; the SSD scan over dtypes, groups, chunks,
+             names for it; the decode kernel over q dtypes, GQA groups 1
+             to 8, head dims, windows, soft-caps and ragged positions on
+             both routes (whole and split), NaN rows past the positions
+             ignored; the SSD scan over dtypes, groups, chunks,
              widths, batches, 2, 3 and 8 chunks and ragged lengths; the
              router over expert counts up to 64, k, token counts from 1 to
              8192 (one tile, a tile's edge, many tiles), capacities, tied
@@ -158,10 +162,17 @@ non-zero):
              windows keep the plain attention: no flash launch, checked)
              and Phi-3.5-MoE at 24 of its 32 layers (``PHI_LAYERS``; flash
              and the router with 16 experts, top-2), each timed by its own
-             log line. Checks: every ticket resolves
+             log line; every attention model decodes through the decode
+             kernel (Gemma3-4B too: its windows are arguments). Checks:
+             every ticket resolves
              with 32 tokens, each kernel's launches equal layers x prefills
-             (the router: layers x (prefills + decode steps)), every flash
-             launch on the wgmma route (``PATH_VARIANT``),
+             (the router: layers x (prefills + decode steps); the decode
+             kernel: layers x decode steps), every flash launch on the
+             wgmma route and every decode launch split (``PATH_VARIANT``),
+             one more decode step on the run's final cache with the decode
+             kernel held at each call's inputs and its logits against the
+             plain version's (``hold_decode``; not held for the top-2
+             MoE models),
              serve tasks in the job, finite logits, and the kernels' prefill logits against
              the plain versions' on the same weights (Mamba's in an f32 copy
              of the model, after its SSD held layer by layer in bf16).
@@ -192,8 +203,10 @@ non-zero):
              whole through the bundle (2 batches of 4 clips of 1500 frames,
              256-token prompts, 32 decode steps; 12 flash calls a prefill —
              encoder, decoder self, cross against 1500 keys — and none in
-             decode), each kind of flash call held at its first layer's
-             inputs. Checks: launches, routes, finite logits, prefill logits
+             decode, where the decoder's self-attention takes the decode
+             kernel), each kind of flash call held at its first layer's
+             inputs, each phase's decode kernel by ``hold_decode``.
+             Checks: launches, routes, finite logits, prefill logits
              against the chunked attention's (``SERVE_REL_L2``; Jamba's with
              the router's plain version, ``MOE_REL_L2``). Reports the serve
              cells' figures and each phase's seconds;
@@ -2496,8 +2509,25 @@ SSM_F32_REL_L2 = 1e-3
 MOE_REL_L2 = 1e-2
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_NEW = 4, 4096, 8, 32
 #: the route every launch of a serve path must take, for a kernel with more
-#: than one (``launches_by_variant``): bf16 flash on the tensor cores
-PATH_VARIANT = {"flash_attention": "wgmma"}
+#: than one (``launches_by_variant``): bf16 flash on the tensor cores; the
+#: decode kernel split over each slot's rows (4 slots leave most SMs
+#: without a (slot, kv head) block)
+PATH_VARIANT = {"flash_attention": "wgmma", "decode_attention": "split"}
+#: the decode kernel against its plain version, elementwise (atol, rtol):
+#: its output is bf16; the plain version rounds each probability to bf16
+#: before P·V where the kernel keeps it in f32, both round the output to
+#: bf16 (2^-9 relative each) and sum in other orders; the flash kernel's
+#: bf16 tolerance holds that
+DECODE_TOL = (2e-2, 2e-2)
+#: and in relative L2 over the output (a row summed wrong would pass the
+#: elementwise test): those roundings give a few 1e-3
+DECODE_REL_L2 = 1e-2
+#: the serve cell's decode (chipbench's olmo-1b.serve-chat-128): 128 slots of
+#: 2048 positions, OLMo-1B's 16 kv heads of 128, G = 1, bf16; its mix's laws
+#: (chipbench/traffic/serve-chat-128.json): lognormal prompts (median, sigma,
+#: min, max) and outputs
+DECODE_CELL = dict(slots=128, cache_len=2048, kv_heads=16, group=1, head_dim=128)
+DECODE_MIX = dict(prompt=(1020, 0.8, 128, 1792), output=(129, 0.6, 32, 256))
 #: each redesigned kernel's time at its row's shape in its earlier design, as
 #: recorded on an NVIDIA H100 80GB HBM3 at a 700 W power limit (flash and the
 #: SSD scan: their f32-FMA designs, by this script; the segmented scan and
@@ -2609,6 +2639,88 @@ def flash_edge_checks():
         f"relative L2 at most {worst_l2['short']:.3e} with Sq, Skv in {FLASH_LENS} and "
         f"{worst_l2['long']:.3e} with either in {FLASH_LONG_LENS} (tolerance "
         f"{FLASH_BF16_REL_L2}); cases by route {by_variant}")
+
+
+#: decode edge cases: every GQA group the kernel has an instance for (the
+#: configs': Qwen3 5, Yi and Jamba 8, InternVL2 7, Gemma3 2, Mixtral and Phi 4)
+DECODE_EDGE_G = tuple(range(1, 9))
+DECODE_EDGE_WINDOWS = (None, 16, 1024)
+
+
+def decode_pos(Smax, B, device="cuda"):
+    """Ragged positions for the decode edge cases: the first row, one row,
+    a block's worth, a middle, the last row, past the end (the cache write
+    clamps; every row live), cycled over ``B`` slots."""
+    import torch
+
+    base = [0, 1, 37, Smax // 2 + 3, Smax - 1, Smax + 5]
+    return torch.tensor([base[i % len(base)] for i in range(B)], dtype=torch.int32,
+                        device=device)
+
+
+def decode_edge_checks():
+    """The decode kernel against its plain version on the card: q in bf16
+    and f32 over a bf16 slab, G in ``DECODE_EDGE_G``, hd in {64, 128, 256},
+    window in ``DECODE_EDGE_WINDOWS``, softcap in {0, 50}, ragged positions
+    (``decode_pos``), on both routes: ``whole`` (34 slots x 4 kv heads, more
+    pairs than SMs) and ``split`` (3 slots x 2 kv heads). Each call must
+    count one launch of the route ``splits`` gives it, hold ``DECODE_TOL``
+    and ``DECODE_REL_L2`` and be free of NaN; then NaN rows past each slot's
+    position must change nothing (the kernel reads only the live rows)."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_fwd, splits, variant)
+    from repro_torch.kernels.decode_attention.ref import GLOBAL_WINDOW, decode_attention_ref
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    atol, rtol = DECODE_TOL
+    Smax = 600
+    n, worst, worst_l2, by_variant = 0, 0.0, 0.0, {}
+    for (B, K), qdt, G, hd in itertools.product(((34, 4), (3, 2)),
+                                                (torch.bfloat16, torch.float32),
+                                                DECODE_EDGE_G, (64, 128, 256)):
+        route = variant(splits(B, K, Smax, sms))
+        q = (torch.randn((B, 1, K * G, hd), generator=g, device="cuda") * 4).to(qdt)
+        k = torch.randn((B, Smax, K, hd), generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn((B, Smax, K, hd), generator=g, device="cuda").to(torch.bfloat16)
+        pos = decode_pos(Smax, B)
+        for window, cap in itertools.product(DECODE_EDGE_WINDOWS, (0.0, 50.0)):
+            kw = dict(window=window or GLOBAL_WINDOW, softcap=cap)
+            before = decode_attention_fwd.launches_by_variant.get(route, 0)
+            got = decode_attention_fwd(q, k, v, pos, **kw)
+            ref = decode_attention_ref(q, k, v, pos, **kw)
+            what = (f"decode {route} B={B} K={K} q {qdt} G={G} hd={hd} window={window} "
+                    f"softcap={cap}")
+            check(decode_attention_fwd.launches_by_variant.get(route, 0) == before + 1,
+                  f"{what}: not counted as a launch of the {route} route")
+            by_variant[route] = by_variant.get(route, 0) + 1
+            check(not torch.isnan(got).any(), f"{what}: NaN in the output")
+            check(got.dtype == ref.dtype and got.shape == ref.shape, f"{what}: shape")
+            rel = rel_l2(got, ref)
+            check(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol)
+                  and rel <= DECODE_REL_L2,
+                  f"{what}: max abs err {max_err(got, ref)}, relative L2 {rel} beyond "
+                  f"{DECODE_TOL}, {DECODE_REL_L2}")
+            worst, worst_l2 = max(worst, max_err(got, ref)), max(worst_l2, rel)
+            n += 1
+        if qdt == torch.bfloat16 and G == 1 and hd == 128:
+            clean = decode_attention_fwd(q, k, v, pos)
+            for b, p in enumerate(pos.tolist()):
+                k[b, p + 1:] = float("nan")
+                v[b, p + 1:] = float("nan")
+            check(torch.equal(decode_attention_fwd(q, k, v, pos), clean),
+                  f"decode {route}: NaN rows past pos changed the output")
+    torch.cuda.synchronize()
+    log(f"edge: decode_attention — {n} cases (q bf16/f32 over a bf16 slab x G "
+        f"{DECODE_EDGE_G} x hd {{64, 128, 256}} x window {DECODE_EDGE_WINDOWS} x softcap "
+        f"{{0, 50}} x routes, Smax {Smax}, pos {decode_pos(Smax, 6).tolist()}): OK; max abs "
+        f"err {worst}, relative L2 at most {worst_l2:.3e} (tolerances {DECODE_TOL}, "
+        f"{DECODE_REL_L2}); cases by route {by_variant}; NaN rows past pos ignored on both "
+        f"routes")
 
 
 SSD_TOL = {  # (atol, rtol) of the SSD kernel against ssd_chunked in f32
@@ -3062,6 +3174,64 @@ def serve_prompts(seed, vocab_size):
     return lens, [rng.integers(0, vocab_size, int(n)).astype(np.int32) for n in lens]
 
 
+def hold_decode(label, bundle, params, cache, tokens, layers, logits_held=True):
+    """One decode step on ``cache`` (its rows and positions as a run left
+    them), first with every decode attention call held against
+    ``decode_attention_ref`` at its own inputs (``DECODE_TOL``,
+    ``DECODE_REL_L2``; ``layers`` calls), then with the plain version in
+    place of the kernel. The two steps' logits are held within
+    ``SERVE_REL_L2`` of each other where ``logits_held``, else reported: a
+    model with top-2 routing sends the roundings in which the two differ to
+    other experts. Each step writes its own new row at each slot's
+    position first, so the two read the same cache. Returns the logits'
+    relative L2."""
+    import torch
+
+    import repro_torch.kernels.decode_attention as dpkg
+    from repro_torch.kernels.decode_attention.ref import GLOBAL_WINDOW, decode_attention_ref
+
+    kernel = dpkg.decode_attention
+    atol, rtol = DECODE_TOL
+    worst = {"abs": 0.0, "rel": 0.0, "bad": [], "n": 0}
+
+    def checked(q, k, v, pos, window=GLOBAL_WINDOW, softcap=0.0):
+        o = kernel(q, k, v, pos, window=window, softcap=softcap)
+        ref = decode_attention_ref(q, k, v, pos, window=window, softcap=softcap)
+        rel = rel_l2(o, ref)
+        if not (torch.allclose(o.float(), ref.float(), atol=atol, rtol=rtol)
+                and rel <= DECODE_REL_L2 and not torch.isnan(o).any()):
+            worst["bad"].append(worst["n"])
+        worst["abs"] = max(worst["abs"], max_err(o, ref))
+        worst["rel"] = max(worst["rel"], rel)
+        worst["n"] += 1
+        return o
+
+    def plain(q, k, v, pos, window=GLOBAL_WINDOW, softcap=0.0):
+        return decode_attention_ref(q, k, v, pos, window=window, softcap=softcap)
+
+    with torch.no_grad():
+        with _swapped(dpkg, "decode_attention", checked):
+            lk = bundle.decode_step(params, cache, tokens)[0]
+        with _swapped(dpkg, "decode_attention", plain):
+            lp = bundle.decode_step(params, cache, tokens)[0]
+    rel = rel_l2(lk, lp)
+    log(f"{label}: one decode step at positions {cache['pos'].tolist()} of a slab of "
+        f"{cache['k'].shape[2]}: the decode kernel at each of its {worst['n']} calls' inputs "
+        f"against decode_attention_ref: max abs err {worst['abs']}, relative L2 at most "
+        f"{worst['rel']:.3e} (tolerances {DECODE_TOL}, {DECODE_REL_L2}); logits through the "
+        f"kernel against the plain version's relative L2 {rel:.3e}"
+        + (f" (tolerance {SERVE_REL_L2})" if logits_held else " (not held: top-2 routing)")
+        + f"; argmax agree on {int((lk.argmax(-1) == lp.argmax(-1)).sum())} of "
+        f"{lk.shape[0]}")
+    check(worst["n"] == layers and not worst["bad"],
+          f"{label}: the decode kernel differs from decode_attention_ref at calls "
+          f"{worst['bad']} of {worst['n']} (expected {layers} calls)")
+    if logits_held:
+        check(rel <= SERVE_REL_L2, f"{label}: decode logits through the kernel and the plain "
+              f"version differ: relative L2 {rel}")
+    return rel
+
+
 def serve_phase(args, label, cfg, expect, compare, rel_tol, note="", extra=None):
     """``cfg`` at full width (random weights from a seeded generator) serves
     8 requests of 512–2048 prompt tokens x 32 new tokens through
@@ -3072,7 +3242,9 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note="", extra=None)
     must make in the run; ``compare(bundle, params, tokens)`` gives the
     last-position logits of a prefill through the path's kernels and through
     their plain versions, held within relative L2 ``rel_tol`` of each other
-    on two of the prompts. ``extra(bundle, params)``, when given, runs last
+    on two of the prompts. Where the path decodes through the decode
+    kernel (``expect`` names it), one more decode step on the run's final
+    cache holds it (``hold_decode``). ``extra(bundle, params)``, when given, runs last
     on the same weights and returns a dict merged into the report. Returns
     ({kernel: (launches, sweep launches, geometries)}, report)."""
     import dataclasses
@@ -3155,6 +3327,11 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note="", extra=None)
         f"front door {st['ticks']} ticks, {st['telemetry']['completed']} completed; "
         f"peak max_memory_allocated {peak / 2**30:.2f} GiB")
 
+    if want.get("decode_attention"):
+        last = torch.as_tensor(engine._last, device="cuda")[:, None]
+        hold_decode(label, bundle, params, engine.cache, last,
+                    want["decode_attention"] // len(decode.ms), logits_held=not cfg.is_moe)
+
     # where a tick's and a prefill's time goes: host enqueue against device
     longest = torch.as_tensor(prompts[int(np.argmax(lens))], device="cuda")[None]
     toks = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32, device="cuda")
@@ -3201,7 +3378,8 @@ def serve_qwen(args):
     cfg = get_config("qwen3-14b").with_overrides(attn_impl="flash")
     chunked = build_model(cfg.with_overrides(attn_impl="chunked"))
     return serve_phase(args, "serve", cfg,
-                       lambda prefills, ticks: {"flash_attention": cfg.num_layers * prefills},
+                       lambda prefills, ticks: {"flash_attention": cfg.num_layers * prefills,
+                                                "decode_attention": cfg.num_layers * ticks},
                        lambda bundle, params, tok: (bundle.prefill(params, tokens=tok)[0],
                                                     chunked.prefill(params, tokens=tok)[0]),
                        SERVE_REL_L2)
@@ -3295,7 +3473,8 @@ def serve_dense(args, name, flash=True):
     chunked = build_model(cfg.with_overrides(attn_impl="chunked"))
     return serve_phase(args, name, cfg,
                        lambda prefills, ticks: {
-                           "flash_attention": cfg.num_layers * prefills if flash else 0},
+                           "flash_attention": cfg.num_layers * prefills if flash else 0,
+                           "decode_attention": cfg.num_layers * ticks},
                        lambda bundle, params, tok: (bundle.prefill(params, tokens=tok)[0],
                                                     chunked.prefill(params, tokens=tok)[0]),
                        SERVE_REL_L2, note="" if flash else " (plain attention: uneven windows)")
@@ -3437,6 +3616,7 @@ def serve_moe(args, label, name, layers, why):
     launches, report = serve_phase(
         args, label, cfg,
         lambda prefills, ticks: {"flash_attention": cfg.num_layers * prefills,
+                                 "decode_attention": cfg.num_layers * ticks,
                                  "moe_route": cfg.num_layers * (prefills + ticks)},
         compare, MOE_REL_L2,
         note=f", {cfg.num_layers} of its {full.num_layers} layers ({why}); "
@@ -3646,6 +3826,7 @@ def serve_jamba(args):
     launches, report = serve_phase(
         args, "jamba", cfg,
         lambda prefills, ticks: {"flash_attention": prefills,
+                                 "decode_attention": ticks,
                                  "ssd_scan": n_mixers * prefills,
                                  "moe_route": n_moe * (prefills + ticks)},
         compare, MOE_REL_L2,
@@ -3695,10 +3876,13 @@ def serve_internvl(args):
         fns = K.launch_counters()
         patch_launches.update({k: fn.launches for k, fn in fns.items()})
         check(bool(torch.isfinite(logits).all()), "internvl: a decode logit is not finite")
-        check(patch_launches == {**{k: 0 for k in fns}, "flash_attention": cfg.num_layers}
-              and fns["flash_attention"].launches_by_variant == {"wgmma": cfg.num_layers},
+        decodes = cfg.num_layers * SERVE_NEW
+        check(patch_launches == {**{k: 0 for k in fns}, "flash_attention": cfg.num_layers,
+                                 "decode_attention": decodes}
+              and fns["flash_attention"].launches_by_variant == {"wgmma": cfg.num_layers}
+              and fns["decode_attention"].launches_by_variant == {"split": decodes},
               f"internvl: the patch batch launched {patch_launches}, expected flash "
-              f"{cfg.num_layers} on wgmma")
+              f"{cfg.num_layers} on wgmma and decode {decodes} split")
         check(int(cache["pos"][0]) == cache_len, f"internvl: pos {cache['pos'].tolist()}")
         lk = bundle.prefill(params, tokens=tokens, patches=patches, cache_len=cache_len)[0]
         lc = chunked.prefill(params, tokens=tokens, patches=patches, cache_len=cache_len)[0]
@@ -3721,7 +3905,8 @@ def serve_internvl(args):
 
     launches, report = serve_phase(
         args, "internvl", cfg,
-        lambda prefills, ticks: {"flash_attention": cfg.num_layers * prefills},
+        lambda prefills, ticks: {"flash_attention": cfg.num_layers * prefills,
+                                 "decode_attention": cfg.num_layers * ticks},
         lambda bundle, params, tok: (bundle.prefill(params, tokens=tok)[0],
                                      chunked.prefill(params, tokens=tok)[0]),
         SERVE_REL_L2, note=" (text-only through the engine, as the JAX engine serves it)",
@@ -3741,9 +3926,11 @@ def serve_whisper(args):
     k/v slab with room for them). Flash: 4 encoder (not causal), 4 decoder
     self (causal), 4 cross (Sq 256 against Skv 1500, not causal, q_offset 0)
     per prefill, none in decode (the cached cross K/V meet the plain
-    ``attend``, as in the JAX package). Each kind of flash call is held at
-    its first layer's own inputs against ``attention_ref``; the prefill
-    logits against the chunked attention's at ``SERVE_REL_L2``."""
+    ``attend``, as in the JAX package); the decoder's self-attention decodes
+    through the decode kernel, 4 calls a step (``hold_decode`` holds one
+    step). Each kind of flash call is held at its first layer's own inputs
+    against ``attention_ref``; the prefill logits against the chunked
+    attention's at ``SERVE_REL_L2``."""
     import gc
 
     import numpy as np
@@ -3797,16 +3984,21 @@ def serve_whisper(args):
     fns = K.launch_counters()
     launches = {k: fn.launches for k, fn in fns.items()}
     per_prefill = cfg.enc_layers + 2 * cfg.num_layers
-    want = {**{k: 0 for k in fns}, "flash_attention": per_prefill * WHISPER_BATCHES}
+    want = {**{k: 0 for k in fns}, "flash_attention": per_prefill * WHISPER_BATCHES,
+            "decode_attention": cfg.num_layers * (SERVE_NEW - 1) * WHISPER_BATCHES}
     check(launches == want and fns["flash_attention"].launches_by_variant
-          == {"wgmma": want["flash_attention"]},
+          == {"wgmma": want["flash_attention"]}
+          and fns["decode_attention"].launches_by_variant == {"split": want["decode_attention"]},
           f"whisper: launches {launches} by route "
-          f"{fns['flash_attention'].launches_by_variant}, expected {want} on wgmma")
+          f"{fns['flash_attention'].launches_by_variant} and "
+          f"{fns['decode_attention'].launches_by_variant}, expected {want}, flash on wgmma "
+          f"and decode split")
     peak = torch.cuda.max_memory_allocated()
     gen = WHISPER_BATCHES * WHISPER_CLIPS * SERVE_NEW
     log(f"whisper: {WHISPER_BATCHES * WHISPER_CLIPS} requests x {SERVE_NEW} tokens in "
         f"{wall * 1e3:.1f} ms: {gen / wall:.1f} generated tokens/s; flash launches "
-        f"{launches['flash_attention']} ({per_prefill} a prefill, none in decode); prefill ms "
+        f"{launches['flash_attention']} ({per_prefill} a prefill, none in decode), decode "
+        f"launches {launches['decode_attention']}; prefill ms "
         f"{[round(x, 3) for x in prefill_ms]}; decode ms per step median "
         f"{np.median(decode_ms):.3f}, mean {np.mean(decode_ms):.3f} over {len(decode_ms)}; "
         f"latency per batch {[round(x, 1) for x in latency]} ms; peak max_memory_allocated "
@@ -3837,6 +4029,7 @@ def serve_whisper(args):
             f"{int((lk.argmax(-1) == lc.argmax(-1)).sum())} of {WHISPER_CLIPS}")
         check(rel <= SERVE_REL_L2, f"whisper: flash and chunked prefill logits differ: {rel}")
     nxt = torch.zeros((WHISPER_CLIPS, 1), dtype=torch.int32, device="cuda")
+    hold_decode("whisper", bundle, params, caches[0], nxt, cfg.num_layers)
     where_time("whisper decode step", lambda: bundle.decode_step(params, caches[0], nxt))
     where_time(f"whisper prefill of {WHISPER_CLIPS} x ({cfg.enc_seq} frames + "
                f"{WHISPER_PREFILL_DEC} tokens)",
@@ -5614,8 +5807,91 @@ def flash_row(launches, reps: int):
     return row
 
 
+def decode_lengths(seed):
+    """The serve cell's positions at one decode tick: 128 slots, each a
+    request of the mix (``DECODE_MIX``) drawn with weight its output length
+    (the ticks it holds a slot), part way through its output."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def law(median, sigma, lo, hi, n):
+        return np.clip(np.round(median * np.exp(sigma * rng.standard_normal(n))), lo, hi)
+
+    pool = 1 << 16
+    prompts, outs = law(*DECODE_MIX["prompt"], pool), law(*DECODE_MIX["output"], pool)
+    pick = rng.choice(pool, DECODE_CELL["slots"], p=outs / outs.sum())
+    done = np.floor(rng.random(DECODE_CELL["slots"]) * outs[pick])
+    return (prompts[pick] + done).astype(np.int32)
+
+
+def decode_row(launches, reps: int):
+    """The decode kernel at the serve cell's shape (``DECODE_CELL``, the
+    positions of ``decode_lengths``), timed beside its bound (the live K and
+    V rows, q and o once at 3.35 TB/s) and the plain version; and at the 4
+    slots of this script's Qwen3-14B serve phase (the split route)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_fwd, splits, variant)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    c = DECODE_CELL
+    B, Smax, K, G, hd = c["slots"], c["cache_len"], c["kv_heads"], c["group"], c["head_dim"]
+    lens = decode_lengths(7)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn((B, 1, K * G, hd), generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn((B, Smax, K, hd), generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn((B, Smax, K, hd), generator=g, device="cuda").to(torch.bfloat16)
+    pos = torch.as_tensor(lens, device="cuda")
+    got, ref = decode_attention_fwd(q, k, v, pos), decode_attention_ref(q, k, v, pos)
+    rel = rel_l2(got, ref)
+    check(torch.allclose(got.float(), ref.float(), atol=DECODE_TOL[0], rtol=DECODE_TOL[1])
+          and rel <= DECODE_REL_L2, f"decode at the serve cell: max abs err "
+          f"{max_err(got, ref)}, relative L2 {rel}")
+    live = int(np.minimum(lens + 1, Smax).sum())
+    nbytes = 2 * live * K * hd * 2 + 2 * q.numel() * 2
+    cnt, _t, _g = launches["decode_attention"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row = dict(
+        name="decode_attention", route=variant(splits(B, K, Smax, sms)),
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="none (the JAX package's decode is the plain masked attention)",
+        launches=cnt, max_abs_err=max_err(got, ref),
+        ms=time_ms(lambda: decode_attention_fwd(q, k, v, pos), reps),
+        plain_ms=time_ms(lambda: decode_attention_ref(q, k, v, pos), max(reps // 4, 2)),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        device_ms=device_ms(lambda: decode_attention_fwd(q, k, v, pos)),
+        shape=[list(q.shape), list(k.shape)], dtype="torch.bfloat16", live_rows=live,
+        bytes=nbytes)
+    log(f"kernel decode_attention: q {tuple(q.shape)} k/v {tuple(k.shape)} bf16, {live} live "
+        f"rows of {B * Smax} (mean {live / B:.0f} a slot, positions from the serve mix) "
+        f"launches {cnt} max_abs_err {row['max_abs_err']}, relative L2 {rel:.3e} "
+        f"(tolerance {DECODE_REL_L2}) | {row['ms']:.4f} ms ({nbytes / row['ms'] / 1e6:.0f} "
+        f"GB/s) vs bound {row['bound_ms']:.4f} ms (bytes: {nbytes} B / 3.35 TB/s) | plain "
+        f"{row['plain_ms']:.4f} ms | device {row['device_ms']} ms (torch.profiler); route "
+        f"{row['route']}")
+    del q, k, v, got, ref
+    # the serve phases' shape: Qwen3-14B's 4 slots of 4096, 8 kv heads, G = 5
+    B, Smax, K, G = SERVE_SLOTS, SERVE_CACHE_LEN, 8, 5
+    q = torch.randn((B, 1, K * G, hd), generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn((B, Smax, K, hd), generator=g, device="cuda").to(torch.bfloat16)
+    pos = torch.tensor([600, 1800, 2500, 4000], dtype=torch.int32, device="cuda")
+    live = int(np.minimum(pos.cpu().numpy() + 1, Smax).sum())
+    nbytes = 2 * live * K * hd * 2 + 2 * q.numel() * 2
+    n = splits(B, K, Smax, sms)
+    ms = time_ms(lambda: decode_attention_fwd(q, k, k, pos), reps)
+    log(f"kernel decode_attention: at Qwen3-14B's serve phase q {tuple(q.shape)} k/v "
+        f"{tuple(k.shape)}, pos {pos.tolist()}, {n} splits ({variant(n)}): {ms:.4f} ms vs "
+        f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms | plain "
+        f"{time_ms(lambda: decode_attention_ref(q, k, k, pos), max(reps // 4, 2)):.4f} ms")
+    return row
+
+
 #: one library each; ``segment_reduce`` holds the segmented scan and the prefix scan
-CUDA_SOURCES = ("flash_attention", "ssd_scan", "moe_route", "segment_reduce", "bucket_route")
+CUDA_SOURCES = ("flash_attention", "ssd_scan", "moe_route", "segment_reduce", "bucket_route",
+                "decode_attention")
 
 
 def _demangled(names, bin_dir):
@@ -5708,6 +5984,7 @@ def build():
     for probe in registry._PROBES.values():  # each reaches its CUDA kernel
         probe("cuda")
 
+    from repro_torch.kernels.decode_attention.decode_attention import decode_attention_fwd
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
     from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
     from repro_torch.kernels.moe_route.route import bucket_route_fwd
@@ -5718,6 +5995,10 @@ def build():
     x = torch.zeros((1, 1, 1, 64), device="cuda")
     flash_attention_fwd(x, x, x)  # the fma route
     flash_attention_fwd(x.bfloat16(), x.bfloat16(), x.bfloat16())  # the wgmma route
+    for Smax in (128, 256):  # one block a slot, then two splits and the merge
+        slab = torch.zeros((1, Smax, 1, 64), dtype=torch.bfloat16, device="cuda")
+        decode_attention_fwd(x.bfloat16(), slab, slab,
+                             torch.tensor([Smax - 1], dtype=torch.int32, device="cuda"))
     xs = torch.zeros((1, 16, 2, 16), device="cuda")
     bn = torch.zeros((1, 16, 1, 16), device="cuda")
     ssd_scan_fwd(xs, torch.zeros((1, 16, 2), device="cuda"), torch.zeros(2, device="cuda"),
@@ -5769,6 +6050,7 @@ def main() -> int:
         prefix_edge_checks()
         route_edge_checks()
         flash_edge_checks()
+        decode_edge_checks()
         ssd_edge_checks()
         moe_edge_checks()
         launches = main_path(args)
@@ -5777,6 +6059,7 @@ def main() -> int:
         recovery_phase()
         launches, _ = serve_qwen(args)
         rows.append(flash_row(launches, args.reps))
+        rows.append(decode_row(launches, args.reps))
         launches, _ = serve_mamba(args)
         rows.append(ssd_row(launches, args.reps))
         launches, _ = serve_mixtral(args)

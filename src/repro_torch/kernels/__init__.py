@@ -21,6 +21,10 @@ they are given:
                     decoupled look-back, the second the MoE FFN's router
   flash_attention — ``flash_attention``: online-softmax attention forward,
                     the transformers' prefill attention
+  decode_attention — ``decode_attention``: one query token a slot against
+                    its live rows of the bf16 KV slab (split over the rows
+                    where the slots are few), the transformers' decode
+                    attention; it replaces no TPU kernel
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises — never the plain version. Each kernel's
@@ -28,7 +32,8 @@ dispatching function carries two plain integer counters: ``launches`` (one
 per call that launched the kernel) and ``tune_launches`` (the same, during
 an autotune sweep, so sweeps are counted apart from the path's own runs);
 a kernel with more than one route also counts its launches per route in
-``launches_by_variant`` (flash attention: ``wgmma`` or ``fma``), so a run
+``launches_by_variant`` (flash attention: ``wgmma`` or ``fma``; decode
+attention: ``whole`` or ``split``), so a run
 can show which route its path went through.
 
 A fake tensor (a tracer's: shapes without data, on either device) runs
@@ -180,6 +185,7 @@ def threads_for(block: int) -> int:
 
 def launch_counters() -> dict:
     """``{kernel name: dispatching function}`` for every kernel."""
+    from repro_torch.kernels.decode_attention.decode_attention import decode_attention_fwd
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
     from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
     from repro_torch.kernels.moe_route.route import bucket_route_fwd
@@ -191,6 +197,7 @@ def launch_counters() -> dict:
             "prefix_scan": prefix_scan_fwd,
             "bucket_route": bucket_route_fwd,
             "flash_attention": flash_attention_fwd,
+            "decode_attention": decode_attention_fwd,
             "ssd_scan": ssd_scan_fwd,
             "moe_route": moe_route_fwd}
 

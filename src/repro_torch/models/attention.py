@@ -6,7 +6,8 @@ The chunked path here is the plain one; ``cfg.attn_impl == "flash"``
 dispatches prefill and the training forward to the flash kernel
 (``repro_torch.kernels.flash_attention``: CUDA on the card, its plain
 version on the CPU; differentiable through its ``autograd.Function``,
-whose backward is the plain version's, as in the JAX package).
+whose backward is the plain version's, as in the JAX package), and decode
+to the decode kernel (``repro_torch.kernels.decode_attention``).
 ``attention(..., kv=)`` is cross-attention (the encoder-decoder's decoder):
 k and v are projected from ``kv``, without RoPE, and flash runs with the
 queries' offset 0 into the keys.
@@ -163,9 +164,11 @@ def decode_attention(x, p, cfg, pos, k_cache, v_cache, *, window=GLOBAL_WINDOW):
     Writes the new K/V into the caches IN PLACE at ``pos`` (clamped to the
     last slot, as ``dynamic_update_slice`` clamps) and returns (out,
     k_cache, v_cache) — the same cache tensors. Cache slots at index > pos
-    are masked via the position trick (pos_kv entries beyond pos are
-    invalid). The plain ``attend`` runs over the whole cache: the flash
-    kernel serves prefill only, as in the JAX package.
+    are masked. ``cfg.attn_impl == "flash"`` dispatches, as prefill does,
+    to the decode kernel (``repro_torch.kernels.decode_attention``: on the
+    card it reads each slot's live rows of the bf16 slab in place, up to
+    ``pos``; on the CPU its plain version); otherwise the plain version
+    runs: the masked ``attend`` over the whole cache, as in the JAX package.
     """
     B = x.shape[0]
     q = (x @ p.wq).reshape(B, 1, cfg.num_heads, cfg.head_dim)
@@ -184,8 +187,9 @@ def decode_attention(x, p, cfg, pos, k_cache, v_cache, *, window=GLOBAL_WINDOW):
     k_cache[rows, at] = k_new[:, 0].to(k_cache.dtype)
     v_cache[rows, at] = v_new[:, 0].to(v_cache.dtype)
 
-    idx = torch.arange(Smax, device=x.device, dtype=torch.int32)[None, :]  # (1, Smax)
-    pos_kv = torch.where(idx <= pos[:, None], idx, -1)  # unwritten slots invalid
-    o = attend(q, k_cache, v_cache, pos[:, None], pos_kv, window=window, causal=True,
-               cap=cfg.attn_logit_softcap, chunk=0)
+    from repro_torch.kernels import decode_attention as kernels
+
+    attend_cache = (kernels.decode_attention if cfg.attn_impl == "flash"
+                    else kernels.decode_attention_ref)
+    o = attend_cache(q, k_cache, v_cache, pos, window=window, softcap=cfg.attn_logit_softcap)
     return _promote(o.reshape(B, 1, cfg.q_dim), p.wo), k_cache, v_cache

@@ -147,13 +147,13 @@ def test_a_shared_header_rekeys_every_cuda_library(tmp_path, monkeypatch):
     shared header and the flags)."""
     srcs = sorted(_cuda.CSRC.glob("*.cu*"))
     assert _cuda.CSRC / "sm90.cuh" in srcs
-    for name in ("flash_attention", "ssd_scan"):
+    for name in ("flash_attention", "ssd_scan", "decode_attention"):
         assert '#include "sm90.cuh"' in (_cuda.CSRC / f"{name}.cu").read_text()
     for src in srcs:
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_cuda, "CSRC", tmp_path)
     names = [src.stem for src in srcs if src.suffix == ".cu"]
-    assert {"flash_attention", "ssd_scan", "moe_route"} <= set(names)
+    assert {"flash_attention", "ssd_scan", "moe_route", "decode_attention"} <= set(names)
     before = {n: _cuda.library_path(n) for n in names}
     header = tmp_path / "sm90.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
