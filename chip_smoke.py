@@ -2812,13 +2812,16 @@ def ssd_edge_checks():
 
 def _tied_logits(g, T, E):
     """Random logits whose rows are, in turn, all equal, tied at the top two,
-    tied below the top, or random."""
+    tied below the top, or random, every other random row rounded down to
+    whole numbers (a few values, each held by many experts: ties all through
+    a wide top k)."""
     import torch
 
     x = torch.randn((T, E), generator=g, device="cuda")
     x[0::4] = 0.5
     x[1::4, :2] = 3.0
     x[2::4, 1:] = x[2::4, 1:2]
+    x[3::8] = torch.floor(x[3::8])
     return x
 
 
@@ -2847,14 +2850,16 @@ def _w_err(a, b) -> float:
 #: the router's edge cases: T at one token, a decode tick, a tile's tokens
 #: - 1, a tile, a tile + 1 (the first look-back), the prefill's 2048 (8
 #: tiles), 2049 (ragged; the wrapper pads it to 2304) and 8192 (32 tiles);
-#: E up to the kernel's 64
+#: E up to the kernel's 128 (Granite's 72 among them), k the top-1 and
+#: top-2 instances' and the wide one's (Granite's 10, and the most, 16)
 MOE_EDGE_T = (1, 4, 255, 256, 257, 2048, 2049, 8192)
-MOE_EDGE_E = (4, 8, 16, 64)
+MOE_EDGE_E = (4, 8, 16, 64, 72, 128)
+MOE_EDGE_K = (1, 2, 10, 16)
 
 
 def moe_edge_checks():
     """The router kernel against its plain version on the card: E in
-    ``MOE_EDGE_E``, k in {1, 2}, T in ``MOE_EDGE_T`` (the kernel alone,
+    ``MOE_EDGE_E``, k in ``MOE_EDGE_K`` up to E, T in ``MOE_EDGE_T`` (the kernel alone,
     ``BACK_TO_BACK`` launches with no synchronize between them, and through
     the wrapper, which pads to 256), a capacity that drops and one that does
     not, random rows, rows with tied logits and rows with a NaN or an
@@ -2874,8 +2879,10 @@ def moe_edge_checks():
             "tied": lambda T, E: _tied_logits(g, T, E),
             "non-finite": lambda T, E: _non_finite_logits(g, T, E)}
     n, worst, bad = 0, 0.0, []
-    for E, k, T, drop, kind in itertools.product(MOE_EDGE_E, (1, 2), MOE_EDGE_T,
+    for E, k, T, drop, kind in itertools.product(MOE_EDGE_E, MOE_EDGE_K, MOE_EDGE_T,
                                                  (False, True), make):
+        if k > E:
+            continue
         C = max(1, T * k // E // 2) if drop else T * k
         x = make[kind](T, E)
         ref = moe_route_ref(x, k, C)
@@ -2898,8 +2905,8 @@ def moe_edge_checks():
             check(not ref[3].all(), f"moe_route E={E} T={T} C={C}: nothing dropped")
     torch.cuda.synchronize()
     check(not bad, f"moe_route edge checks: {len(bad)} failed of {n}: {bad[:6]}")
-    log(f"edge: moe_route — {n} cases (E {MOE_EDGE_E} x k {{1, 2}} x T {MOE_EDGE_T} x "
-        f"capacity dropping or not x random, tied or non-finite rows; the kernel "
+    log(f"edge: moe_route — {n} cases (E {MOE_EDGE_E} x k {MOE_EDGE_K} up to E x T "
+        f"{MOE_EDGE_T} x capacity dropping or not x random, tied or non-finite rows; the kernel "
         f"{BACK_TO_BACK} times back to back and through the wrapper): ids, ordinals and keep "
         f"equal; weights max abs err {worst} (tolerance {MOE_W_ATOL})")
 
@@ -3047,13 +3054,62 @@ def host_us(fn, calls: int = 2000) -> float:
     return (t1 - t0) / calls * 1e6
 
 
+#: the wide router's entry: Granite-4.0-H's k = 10 of E = 72 at its serve
+#: cell's decode tick (128 slots) and a prefill of 1,792 tokens, dropless
+#: (capacity T·k, as ``moe_ffn_dropless`` routes)
+MOE_WIDE = (72, 10, (128, 1792))
+
+
+def moe_wide_entry(reps: int):
+    """The router kernel's k <= 16 instance at ``MOE_WIDE``, each shape held
+    against its plain version (ids, ordinals and keep flags bit for bit;
+    weights within ``MOE_W_ATOL``): its launches counted over the entry,
+    device time from ``torch.profiler``, the plain version's time and the
+    bytes bound."""
+    import torch
+
+    from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
+    from repro_torch.kernels.moe_route.ref import moe_route_ref
+
+    E, k, Ts = MOE_WIDE
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out, before = {}, moe_route_fwd.launches
+    for T in Ts:
+        x = torch.randn((T, E), generator=g, device="cuda")
+        C = T * k
+        got, ref = moe_route_fwd(x, k, C), moe_route_ref(x, k, C)
+        for a, b, nm in zip(got[1:], ref[1:], ("idx", "pos", "keep")):
+            exact(a, b, f"moe_route {T}x{E} k={k} C={C} {nm}")
+        err = max_err(got[0], ref[0])
+        check(err <= MOE_W_ATOL, f"moe_route {T}x{E} k={k}: weights max abs err {err}")
+        nbytes = T * E * 4 + T * k * (4 + 4 + 4 + 1)
+        by_ms, per_call = device_profile(lambda: moe_route_fwd(x, k, C), 50)
+        check(bool(by_ms), f"moe_route {T}x{E} k={k}: the profiler saw no device time")
+        r = out[T] = dict(
+            shape=[T, E], k=k, capacity=C, max_abs_err=err,
+            device_ms=round(sum(by_ms.values()), 6), device_ms_by_kernel=by_ms,
+            launches_per_call=per_call,
+            plain_ms=time_ms(lambda: moe_route_ref(x, k, C), reps),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+        log(f"kernel moe_route (k={k} of E={E}, T={T}): ids, ordinals and keep equal to the "
+            f"plain version's, weights max abs err {err} | device {r['device_ms']} ms "
+            f"(torch.profiler; {by_ms}, launches per call seen {per_call}) | bound "
+            f"{r['bound_ms']:.6f} ms (bytes: {nbytes} B / 3.35 TB/s) | plain "
+            f"{r['plain_ms']:.4f} ms")
+    launched = moe_route_fwd.launches - before
+    check(launched > 0, "moe_route: the wide entry counted no launch")
+    log(f"kernel moe_route (k={k} of E={E}): {launched} launches counted over the entry")
+    return dict(launches=launched, shapes=out)
+
+
 def moe_row(launches, reps: int):
     """The router kernel at the Mixtral path's largest prefill and at its
     decode tick (T = 4), each held against its plain version: device time
     from ``torch.profiler`` (the row's ``ms``; CUDA events around
     back-to-back calls time the host's enqueue here, and are kept as
     ``event_ms``), the wrapper's host µs per call, the plain version's time
-    and the bound; no PyTorch call computes this function."""
+    and the bound; no PyTorch call computes this function. The k <= 16
+    instance's entry (``moe_wide_entry``) is the row's ``wide``."""
     import torch
 
     from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
@@ -3098,7 +3154,8 @@ def moe_row(launches, reps: int):
         ms=pre["device_ms"], plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
         bound_by="bytes", library_ms=None, device_ms=pre["device_ms"],
         host_us=pre["host_us"], event_ms=pre["event_ms"], shape=pre["shape"], k=pre["k"],
-        capacity=pre["capacity"], dtype="torch.float32", decode=shapes["decode"])
+        capacity=pre["capacity"], dtype="torch.float32", decode=shapes["decode"],
+        wide=moe_wide_entry(reps))
 
 
 class _Timed:

@@ -6,6 +6,7 @@ from repro_torch.configs.base import (ArchConfig, SHAPES, ShapeCell,  # noqa: F4
 
 from repro_torch.configs import (  # noqa: F401  (registration)
     gemma3_4b,
+    granite_4_0_h_small,
     internvl2_1b,
     jamba_1_5_large_398b,
     mamba2_780m,

@@ -6,7 +6,8 @@ same-family config for CPU tests. The port registers every configuration
 of the JAX package: the dense family (``qwen3-14b``, ``olmo-1b``, ``yi-9b``,
 ``gemma3-4b``), the SSM family (``mamba2-780m``), the MoE family
 (``mixtral-8x7b``, ``phi3.5-moe-42b-a6.6b``), the hybrid
-(``jamba-1.5-large-398b``), the VLM (``internvl2-1b``), the audio
+(``jamba-1.5-large-398b``; ``granite-4.0-h-small``, which the JAX package
+does not have), the VLM (``internvl2-1b``), the audio
 encoder-decoder (``whisper-tiny``) and the paper's own presets
 ``ignis-tiny`` / ``ignis-100m``. ``param_count``/``active_param_count``
 are the model zoo's analytic counts.
@@ -82,6 +83,22 @@ class ArchConfig:
 
     # hybrid (jamba): one attention layer per `attn_period` layers
     attn_period: int = 0
+    # hybrid with a stated layout (granite-4.0-h): one period's mixers, "M"
+    # Mamba-2 and "A" attention, with an MoE FFN in every layer; its length
+    # is the period (attn_period is then left 0); "" keeps jamba's
+    # (attention first, MoE in the odd slots, dense MLPs elsewhere)
+    layer_pattern: str = ""
+    moe_shared_ff: int = 0  # width of a shared SwiGLU expert every token takes (0: none)
+    moe_dropless: bool = False  # every routed assignment computed: no capacity, no drop
+
+    # scalars of granite's residual stream: embedding x embed_multiplier,
+    # each branch x residual_multiplier, logits / logits_scaling; attention
+    # scores x attn_scale (0: head_dim^-1/2); the rmsnorms' eps
+    embed_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attn_scale: float = 0.0
+    rms_eps: float = 1e-6
 
     # encoder-decoder (whisper)
     is_encdec: bool = False
@@ -132,6 +149,12 @@ class ArchConfig:
         return self.d_inner // self.ssm_headdim if self.ssm_state else 0
 
     @property
+    def hybrid_period(self) -> int:
+        """Layers a hybrid period: the stated layout's, else ``attn_period``
+        (0: not a hybrid)."""
+        return len(self.layer_pattern) or self.attn_period
+
+    @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
@@ -178,8 +201,10 @@ class ArchConfig:
             kw.update(ssm_state=16, ssm_headdim=16, ssm_chunk=16)
         if self.is_encdec:
             kw.update(enc_layers=2, enc_seq=64)
-        if self.attn_period:
-            kw.update(num_layers=self.attn_period)  # one hybrid block
+        if self.hybrid_period:
+            kw.update(num_layers=self.hybrid_period)  # one hybrid block
+        if self.moe_shared_ff:
+            kw.update(moe_shared_ff=96)
         if self.local_global_period:
             kw.update(num_layers=self.local_global_period + 1, local_window=16)
         if self.sliding_window:

@@ -25,6 +25,9 @@ they are given:
                     its live rows of the bf16 KV slab (split over the rows
                     where the slots are few), the transformers' decode
                     attention; it replaces no TPU kernel
+  moe_experts     — ``grouped_experts``: the dropless MoE's expert SwiGLU
+                    as PyTorch's grouped GEMM over the experts' segments;
+                    not a kernel of the port, here to be counted with them
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises — never the plain version. Each kernel's
@@ -184,7 +187,9 @@ def threads_for(block: int) -> int:
 
 
 def launch_counters() -> dict:
-    """``{kernel name: dispatching function}`` for every kernel."""
+    """``{kernel name: dispatching function}`` for every kernel, and the
+    dropless MoE's grouped expert products (``moe_experts``: PyTorch's
+    grouped GEMM, not a kernel of the port, counted per call on the card)."""
     from repro_torch.kernels.decode_attention.decode_attention import decode_attention_fwd
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
     from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
@@ -192,6 +197,7 @@ def launch_counters() -> dict:
     from repro_torch.kernels.segment_reduce.segment_reduce import segment_reduce_fwd
     from repro_torch.kernels.ssd_scan.prefix import prefix_scan_fwd
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
+    from repro_torch.kernels.moe_experts import grouped_experts
 
     return {"segment_reduce": segment_reduce_fwd,
             "prefix_scan": prefix_scan_fwd,
@@ -199,7 +205,8 @@ def launch_counters() -> dict:
             "flash_attention": flash_attention_fwd,
             "decode_attention": decode_attention_fwd,
             "ssd_scan": ssd_scan_fwd,
-            "moe_route": moe_route_fwd}
+            "moe_route": moe_route_fwd,
+            "moe_experts": grouped_experts}
 
 
 def reset_launches() -> None:

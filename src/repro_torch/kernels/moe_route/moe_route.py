@@ -25,7 +25,9 @@ from repro_torch.kernels import _cuda, count_launch, counted, fake_call, is_fake
 from repro_torch.kernels.moe_route.ref import moe_route_ref
 
 #: the most experts the kernel takes (its per-warp counts sit in shared memory)
-MAX_EXPERTS = 64
+MAX_EXPERTS = 128
+#: the most experts a token takes (each slot's expert and weight sit in registers)
+MAX_K = 16
 #: tokens per tile, one per thread of a block (``NT`` in the source)
 TILE_TOKENS = 256
 _fn = None
@@ -76,9 +78,9 @@ def _check(logits, k):
         raise ValueError(f"moe_route kernel takes (T, E) float32 logits, got "
                          f"{tuple(logits.shape)} {logits.dtype}")
     E = logits.shape[1]
-    if k not in (1, 2) or not k <= E <= MAX_EXPERTS:
-        raise ValueError(f"moe_route kernel takes k in (1, 2) and k <= E <= {MAX_EXPERTS}, "
-                         f"got k {k}, E {E}")
+    if not 1 <= k <= MAX_K or not k <= E <= MAX_EXPERTS:
+        raise ValueError(f"moe_route kernel takes 1 <= k <= {MAX_K} and k <= E <= "
+                         f"{MAX_EXPERTS}, got k {k}, E {E}")
 
 
 @counted

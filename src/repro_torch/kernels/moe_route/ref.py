@@ -99,11 +99,12 @@ def _top_k(logits: torch.Tensor, k: int):
     """(weights (T, k) f32 renormalised, idx (T, k) int64) of the router.
 
     The softmax is ``exp(l - max) / sum`` with the sum taken column by
-    column, as the kernel takes it. Top-k is an iterative argmax over the
-    probabilities (``torch.argmax`` returns the first maximum, so the lower
-    expert index wins a tie, as with ``jax.lax.top_k``, and it ranks NaN
-    highest, so a row of NaN probabilities routes to experts 0 and 1);
-    ``torch.topk`` does not promise that order."""
+    column, as the kernel takes it, and the renormalising sum slot by slot.
+    Top-k is an iterative argmax over the probabilities (``torch.argmax``
+    returns the first maximum, so the lower expert index wins a tie, as
+    with ``jax.lax.top_k``, and it ranks NaN highest, so a row of NaN
+    probabilities routes to experts 0, 1, ...); ``torch.topk`` does not
+    promise that order."""
     E = logits.shape[1]
     lf = logits.float()
     e = torch.exp(lf - lf.max(dim=-1, keepdim=True).values)
@@ -119,7 +120,10 @@ def _top_k(logits: torch.Tensor, k: int):
         rem = rem.scatter(1, i, float("-inf"))
     w = torch.cat(ws, dim=1)
     idx = torch.cat(ids, dim=1)
-    return w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9), idx
+    total = ws[0]
+    for x in ws[1:]:  # slot by slot, as the kernel sums
+        total = total + x
+    return w / torch.clamp_min(total, 1e-9), idx
 
 
 def _ordinals(idx: torch.Tensor, E: int):

@@ -184,13 +184,17 @@ class _BlockPart(torch.nn.Module):
 
     def __init__(self, block, slots):
         super().__init__()
-        self.attn = block.attn if "attn" in slots else None
-        for name in slots:
-            if name != "attn":
-                self.add_module(name, getattr(block, name))
+        for name, slot in block.named_children():  # in the block's order
+            if name in slots:
+                self.add_module(name, slot)
+        if "attn" not in slots:
+            self.attn = None
 
     def slots(self):
         return [m for n, m in self.named_children() if n != "attn"]
+
+    def layers(self):
+        return list(self.children())
 
 
 def _with_units(params, family, uids):

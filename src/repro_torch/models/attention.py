@@ -10,7 +10,8 @@ whose backward is the plain version's, as in the JAX package), and decode
 to the decode kernel (``repro_torch.kernels.decode_attention``).
 ``attention(..., kv=)`` is cross-attention (the encoder-decoder's decoder):
 k and v are projected from ``kv``, without RoPE, and flash runs with the
-queries' offset 0 into the keys.
+queries' offset 0 into the keys. A config's ``attn_scale`` is folded into
+the queries (``_scaled``), so the kernels keep their ``head_dim^-1/2``.
 """
 from __future__ import annotations
 
@@ -107,6 +108,17 @@ def attend(q, k, v, pos_q, pos_kv, *, window=GLOBAL_WINDOW, causal=True, cap=0.0
     return o.reshape(B, Sq, H, hd)
 
 
+def _scaled(q, cfg):
+    """``q`` times ``attn_scale / head_dim^-1/2`` where the config states a
+    softmax scale (``attn_scale``, granite's ``attention_multiplier``), so
+    that every attention path, which scales scores by ``head_dim^-1/2``,
+    scales them by ``attn_scale``; ``q`` itself otherwise. The product is
+    taken in f32 and rounded once to ``q``'s dtype."""
+    if not cfg.attn_scale:
+        return q
+    return (q.float() * (cfg.attn_scale * cfg.head_dim ** 0.5)).to(q.dtype)
+
+
 def _promote(o, w):
     """``o @ w`` with the JAX package's type promotion (a bf16 attention
     output meets an f32 projection in an f32 model's decode)."""
@@ -141,6 +153,7 @@ def attention(x, p, cfg, pos, *, kv=None, window=GLOBAL_WINDOW, causal=True, pos
     if kv is None and cfg.rope_theta:
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
+    q = _scaled(q, cfg)
     if cfg.attn_impl == "flash" and pos_kv is None and static_window:
         from repro_torch.kernels.flash_attention import flash_attention
 
@@ -180,6 +193,7 @@ def decode_attention(x, p, cfg, pos, k_cache, v_cache, *, window=GLOBAL_WINDOW):
     if cfg.rope_theta:
         q = rope(q, pos[:, None], cfg.rope_theta)
         k_new = rope(k_new, pos[:, None], cfg.rope_theta)
+    q = _scaled(q, cfg)
 
     Smax = k_cache.shape[1]
     rows = torch.arange(B, device=x.device)

@@ -90,9 +90,11 @@ class Norm(nn.Module):
             raise ValueError(norm_type)
 
 
-def apply_norm(x, p, norm_type):
+def apply_norm(x, p, norm_type, eps=1e-6):
+    """``x`` through the norm ``p`` of ``norm_type``; ``eps`` is the
+    rmsnorm's (a config's ``rms_eps``)."""
     if norm_type == "rmsnorm":
-        return rmsnorm(x, p.scale)
+        return rmsnorm(x, p.scale, eps)
     if norm_type == "layernorm":
         return layernorm(x, p.scale, p.bias)
     if norm_type == "nonparam_ln":

@@ -168,7 +168,7 @@ def mamba_mixer(x, p, cfg):
                         Bm.reshape(b, s, g, n), Cm.reshape(b, s, g, n), cfg.ssm_chunk)
     y = y + xs.reshape(b, s, h, ph) * p.Dskip[None, None, :, None].to(x.dtype)
     y = y.reshape(b, s, di)
-    y = rmsnorm(y * F.silu(z), p.norm)  # gated RMSNorm (mamba2)
+    y = rmsnorm(y * F.silu(z), p.norm, cfg.rms_eps)  # gated RMSNorm (mamba2)
     return y @ p.out_proj, conv_tail, state
 
 
@@ -194,5 +194,5 @@ def mamba_mixer_decode(x, p, cfg, conv_cache, state):
                           Bm.reshape(b, g, n), Cm.reshape(b, g, n))
     y = y + xs.reshape(b, h, ph) * p.Dskip[None, :, None].to(x.dtype)
     y = y.reshape(b, di)
-    y = rmsnorm(y * F.silu(z), p.norm)
+    y = rmsnorm(y * F.silu(z), p.norm, cfg.rms_eps)
     return (y @ p.out_proj)[:, None, :], window[:, 1:], state

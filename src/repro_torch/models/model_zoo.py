@@ -307,8 +307,7 @@ def analytic_param_count(cfg: ArchConfig, active_only: bool = False) -> int:
         E, K, D, F = cfg.num_experts, cfg.experts_per_token, cfg.d_model, cfg.d_ff
         per_moe_layer = E * 3 * D * F
         if cfg.family == "hybrid":
-            n_moe = (cfg.num_layers // cfg.attn_period) * sum(
-                1 for i in range(1, hybrid.N_SLOTS) if i % cfg.moe_period == 1)
+            n_moe = hybrid.moe_layers(cfg)
         else:
             n_moe = sum(1 for i in range(cfg.num_layers) if i % cfg.moe_period == 0)
         total -= int(n_moe * per_moe_layer * (1 - K / E))

@@ -16,6 +16,18 @@ Switch/ST-MoE. The router product ``x @ router``, the packing, the expert
 products, the scatter and the loss stay plain torch, as they are plain jnp
 outside any kernel in the JAX package.
 
+Under ``cfg.moe_dropless`` (granite) no assignment is dropped:
+``moe_ffn_dropless`` sorts the assignments by expert without a sort (the
+router's ordinals plus each expert's offset, from the counts of the
+experts before it, give each its row), gathers their tokens into one
+(T·k, D) buffer, and runs the experts' products as grouped products over
+the experts' segments of it (``kernels.moe_experts``), so the expert work
+grows with the assignments and not with E x T; each token's k outputs are
+summed with their router weights in f32. The buffer's row offsets stay on
+the device: nothing is read back. A config's ``moe_shared_ff`` adds a
+shared SwiGLU expert (``MoE.shared``) that every token takes, on either
+path.
+
 Expert parallelism is ``models/moe_ep.py``: ``moe_apply`` takes it by an
 explicit rule (``moe_ep.ep_applicable``: ``cfg.moe_ep``, an ambient mesh
 whose data axis has p > 1 ranks, ``E % p == 0``, ``B % p == 0``) where the
@@ -28,12 +40,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import weight
+from repro_torch.kernels.moe_experts import grouped_experts
+from repro_torch.models.layers import MLP, mlp, weight
+from repro_torch.profile.spans import span
 
 
 class MoE(nn.Module):
     """``router`` (D, E) f32; ``w_gate``, ``w_up`` (E, D, F) and ``w_down``
-    (E, F, D) in the parameter dtype — the JAX package's ``make_moe_params``."""
+    (E, F, D) in the parameter dtype — the JAX package's ``make_moe_params``;
+    with ``cfg.moe_shared_ff``, ``shared``: the shared expert's SwiGLU."""
 
     def __init__(self, cfg, dtype, device=None, generator=None):
         super().__init__()
@@ -42,6 +57,8 @@ class MoE(nn.Module):
         self.w_gate = weight((E, D, Fd), dtype, device, generator)
         self.w_up = weight((E, D, Fd), dtype, device, generator)
         self.w_down = weight((E, Fd, D), dtype, device, generator)
+        if cfg.moe_shared_ff:
+            self.shared = MLP(D, cfg.moe_shared_ff, dtype, device, generator)
 
 
 def capacity_for(cfg, tokens: int) -> int:
@@ -59,8 +76,22 @@ def route(x, router, k, capacity):
     return (*moe_route(logits, k, capacity), logits)
 
 
+def _balance_loss(counts, logits, T, K):
+    """Switch-style load balancing: E · Σ_e f_e · P_e, ``counts`` (E,) the
+    assignments to each expert."""
+    f = counts / (T * K)
+    P = torch.softmax(logits, dim=-1).mean(dim=0)
+    return counts.shape[0] * torch.sum(f * P)
+
+
+def _with_shared(y, x, p):
+    return y + mlp(x, p.shared) if hasattr(p, "shared") else y
+
+
 def moe_ffn(x, p, cfg, capacity: int | None = None):
     """x: (T, D) flat tokens → (y (T, D), aux_loss scalar)."""
+    if cfg.moe_dropless:
+        return moe_ffn_dropless(x, p, cfg)
     T, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     C = capacity if capacity is not None else capacity_for(cfg, T)
@@ -92,10 +123,33 @@ def moe_ffn(x, p, cfg, capacity: int | None = None):
     # below 2^24 assignments)
     counts = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
         0, e_flat, torch.ones(e_flat.shape, dtype=torch.float32, device=x.device))
-    f = counts / (T * K)
-    P = torch.softmax(logits, dim=-1).mean(dim=0)
-    aux = E * torch.sum(f * P)
-    return y, aux
+    return _with_shared(y, x, p), _balance_loss(counts, logits, T, K)
+
+
+def moe_ffn_dropless(x, p, cfg):
+    """x: (T, D) flat tokens → (y (T, D), aux_loss scalar), every one of the
+    T·k assignments computed. Recorded as the program span ``moe.experts``
+    (args ``tokens``, ``assignments`` and ``experts_hit``, the experts with
+    at least one assignment: a device count, read by ``spans.settle``)."""
+    T, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    with span("moe.experts") as sp:
+        w, idx, pos, _keep, logits = route(x, p.router, K, max(T * K, 1))
+        e_flat = idx.reshape(-1).long()
+        counts = torch.zeros(E, dtype=torch.int32, device=x.device).index_add_(
+            0, e_flat, torch.ones(e_flat.shape, dtype=torch.int32, device=x.device))
+        ends = torch.cumsum(counts, 0, dtype=torch.int32)
+        # each assignment's row among those sorted by expert (token-major
+        # within an expert, as the router's ordinals count)
+        row = ((ends - counts)[e_flat] + pos.reshape(-1)).long()
+        t_flat = torch.arange(T * K, device=x.device) // K
+        token_of_row = torch.empty_like(t_flat).index_copy_(0, row, t_flat)
+        ys = grouped_experts(x[token_of_row], p.w_gate, p.w_up, p.w_down, ends)
+        y = (ys[row].view(T, K, D).float() * w[..., None]).sum(1).to(x.dtype)
+        if sp:
+            sp.args.update(tokens=T, assignments=T * K)
+            sp.defer("experts_hit", (counts > 0).sum())
+    return _with_shared(y, x, p), _balance_loss(counts.float(), logits, T, K)
 
 
 def moe_ffn_bsd(x, p, cfg):

@@ -31,7 +31,8 @@ flat path.
 
 ``ep_applicable`` is the rule ``moe_apply`` takes EP by: ``cfg.moe_ep``, an
 ambient mesh whose data axis has p > 1 ranks, ``E % p == 0`` and
-``B % p == 0``. Where it does not hold the flat path runs, which gives the
+``B % p == 0``; it raises for a config with ``moe_ep`` that is dropless or
+has a shared expert (Granite's), which EP does not implement. Where it does not hold the flat path runs, which gives the
 JAX package's results for those shapes (its ``moe_apply`` falls back from
 the error EP raises there); an error inside EP raises.
 """
@@ -52,9 +53,16 @@ def _mesh_axis_size(axis: str):
 
 
 def ep_applicable(cfg, batch: int, axis: str = "data") -> bool:
-    """Whether ``moe_apply`` takes EP for a batch of ``batch`` rows."""
+    """Whether ``moe_apply`` takes EP for a batch of ``batch`` rows. EP has
+    a capacity and no shared expert, so it raises for a config with
+    ``moe_ep`` that asks for either (``moe_dropless``, ``moe_shared_ff``)
+    rather than drop tokens or skip the shared expert."""
     if not getattr(cfg, "moe_ep", False):
         return False
+    if getattr(cfg, "moe_dropless", False) or getattr(cfg, "moe_shared_ff", 0):
+        raise NotImplementedError(
+            f"{cfg.name}: expert parallelism drops past its capacity and has no shared "
+            f"expert; moe_dropless {cfg.moe_dropless}, moe_shared_ff {cfg.moe_shared_ff}")
     p = _mesh_axis_size(axis)
     return (p is not None and p > 1 and cfg.num_experts % p == 0
             and batch % p == 0)

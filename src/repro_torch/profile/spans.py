@@ -36,10 +36,14 @@ args and nesting (children indented, per thread)::
           engine.prefill   rid, tokens, queue_ms
             launch         until bundle.prefill returns
               model.prefill  the bundle's own prefill   models/model_zoo.py
+                moe.experts  tokens, assignments,        models/moe.py
+                             experts_hit
             readback       int(argmax): the host blocked on the device
             splice
         engine.decode      live
           launch           until decode_step returns
+            moe.experts    tokens, assignments,          models/moe.py
+                           experts_hit
           readback         argmax(...).cpu()
     feed.wait                                           data/pipeline.py
     train.step                                          launch/train.py
@@ -49,7 +53,13 @@ args and nesting (children indented, per thread)::
 
 ``handoff_ms`` is the tick's wait from its submission (``JobTask.t_submit``)
 to the span's start; ``queue_ms`` a request's from ``ServeEngine.submit``
-to its prefill's start.
+to its prefill's start. ``moe.experts`` is one dropless MoE layer (the
+router, the grouped expert products, the weighted sum; one a layer): its
+``tokens`` and routed ``assignments`` (tokens x k), and ``experts_hit``, the
+experts given at least one. That count is made on the device and stays
+there (``defer``) until ``settle`` reads every deferred count of the thread
+in one copy: the engine calls it right after the readback that already
+waited for the device, and only while recording.
 """
 from __future__ import annotations
 
@@ -170,6 +180,19 @@ class _Off:
 _OFF = _Off()
 
 
+def settle() -> None:
+    """Replace the calling thread's deferred span args (``_Open.defer``),
+    device scalars, by their values, all in one copy to the host (which
+    waits for the device where the caller has not)."""
+    pending = getattr(_local, "pending", None)
+    if not pending:
+        return
+    values = torch.stack([t for _, _, t in pending]).tolist()
+    for (args, key, _), v in zip(pending, values):
+        args[key] = v
+    pending.clear()
+
+
 class _Open:
     """A program span being recorded: ``args`` takes its counts."""
 
@@ -182,6 +205,15 @@ class _Open:
         if device is not None and torch.device(device).type == "cuda":
             self.events = (torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True))
+
+    def defer(self, key: str, value) -> None:
+        """Set ``args[key]`` to ``value``, a 0-d tensor on the device, read
+        at the thread's next ``settle`` (so recording adds no wait here)."""
+        self.args[key] = value
+        pending = getattr(_local, "pending", None)
+        if pending is None:
+            pending = _local.pending = []
+        pending.append((self.args, key, value))
 
     def __bool__(self):
         return True

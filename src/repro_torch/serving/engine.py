@@ -17,7 +17,7 @@ The engine feeds token prompts, as the JAX engine does: the VLM is served
 text-only, and the audio family's prefill, which needs ``frames``, raises;
 both take their patches or frames through ``bundle.prefill`` itself. Its
 ``_splice`` writes each cache leaf on that leaf's batch axis — the
-hybrid's ``conv``/``state`` are ``(n_blocks, 7, B, …)`` — where the JAX
+hybrid's ``conv``/``state`` are ``(n_blocks, mamba slots, B, …)`` — where the JAX
 ``_splice`` writes every leaf on axis 1 and so lands a hybrid request's
 recurrent state in slot 0.
 """
@@ -31,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.profile.spans import span
+from repro_torch.profile.spans import settle, span
 
 
 @dataclass
@@ -114,6 +114,8 @@ class ServeEngine:
                 logits, cache1 = self.bundle.prefill(self.params, tokens=tokens)
             with span("readback"):
                 first = int(torch.argmax(logits[0]))
+            if sp:
+                settle()  # the spans' device counts, now that the device has caught up
             req.tokens.append(first)
             self._last[s] = first
             with span("splice"):
@@ -140,6 +142,8 @@ class ServeEngine:
                                                                  toks)
                 with span("readback"):
                     nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+                if dp:
+                    settle()
             for s, req in enumerate(self.live):
                 if req is None:
                     continue
@@ -191,7 +195,7 @@ def _splice(cache, cache1, slot: int, cache_len: int):
 
     Each leaf is written on its batch axis (``_batch_axis``): axis 0 of
     ``pos``, axis 1 of the per-layer stacks ``(L, B, …)``, axis 2 of the
-    hybrid's mixer state ``(n_blocks, 7, B, …)``. A KV leaf (``(L, B,
+    hybrid's mixer state ``(n_blocks, mamba slots, B, …)``. A KV leaf (``(L, B,
     cache_len, …)`` against the request's ``(L, 1, Lp, …)``) takes the
     request's Lp rows and is zeroed beyond them, as the JAX package pads
     with zeros; a state-like leaf (a conv tail, an SSM state) has the same

@@ -9,6 +9,7 @@ JAX ``init`` takes seconds), carried to the JAX package by
 configs are f32 (``param_dtype="float32"``) unless a test says otherwise,
 so the tolerances can be tight.
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -17,8 +18,10 @@ import torch
 import jax
 import jax.numpy as jnp
 from repro.configs import get_config as j_config
+from repro.configs.base import ArchConfig as JArchConfig
 from repro.models import build_model as j_build
 from repro_torch.configs import get_config as t_config
+from repro_torch.configs.base import ArchConfig as TArchConfig
 from repro_torch.interop import params_from_reference, params_to_reference, reference_tree
 from repro_torch.models import build_model as t_build
 
@@ -166,3 +169,16 @@ def hold_train_step(name, batch, lr=3e-4):
     assert int(topt["step"]) == 1
     hold_trees(params_to_reference(tp, tc), jax.tree.map(np.asarray, want), GRAD_REL_L2,
                f"{name} parameters after one step")
+
+
+def jax_fields(t: dict) -> dict:
+    """A port config's fields (``dataclasses.asdict``) that the JAX
+    package's ``ArchConfig`` has; the fields only the port has (the layouts
+    and scalars of ``granite-4.0-h-small``, which the JAX package lacks)
+    are held at their defaults first, so every config the two packages
+    share is the JAX package's, field for field, and no more."""
+    shared = {f.name for f in dataclasses.fields(JArchConfig)}
+    extra = {f.name: f.default for f in dataclasses.fields(TArchConfig)
+             if f.name not in shared}
+    assert {k: t[k] for k in extra} == extra, t["name"]
+    return {k: v for k, v in t.items() if k in shared}

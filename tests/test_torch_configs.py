@@ -20,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
+from _torch_families import jax_fields  # noqa: E402
 
 from repro.configs import get_config as j_config  # noqa: E402
 from repro.models import build_model as j_build  # noqa: E402
@@ -39,9 +40,9 @@ def _np(x):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_config_equals_the_reference_field_for_field(name):
-    j, t = dataclasses.asdict(j_config(name)), dataclasses.asdict(t_config(name))
+    j, t = dataclasses.asdict(j_config(name)), jax_fields(dataclasses.asdict(t_config(name)))
     assert t == j
-    assert dataclasses.asdict(t_config(name).reduced()) == dataclasses.asdict(
+    assert jax_fields(dataclasses.asdict(t_config(name).reduced())) == dataclasses.asdict(
         j_config(name).reduced())
 
 
@@ -57,7 +58,7 @@ def _reduced(get, name):
 @pytest.mark.parametrize("name", NAMES)
 def test_reduced_prefill_logits_match_the_reference(name):
     jc, tc = _reduced(j_config, name), _reduced(t_config, name)
-    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+    assert dataclasses.asdict(jc) == jax_fields(dataclasses.asdict(tc))
     jb, tb = j_build(jc), t_build(tc)
     jp = jb.init(jax.random.PRNGKey(0))
     tp = params_from_reference(jax.tree.map(np.asarray, jp), tc)

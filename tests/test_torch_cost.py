@@ -265,7 +265,8 @@ def _refused_calls():
         "flash head_dim 96": (lambda q, k, v: flash_attention(q, k, v),
                               [((1, 4, 64, 96), bf), ((1, 2, 64, 96), bf),
                                ((1, 2, 64, 96), bf)]),
-        "moe_route 65 experts": (lambda x: moe_route(x, 2, 40)[0], [((32, 65), f32)]),
+        "moe_route 129 experts": (lambda x: moe_route(x, 2, 40)[0], [((32, 129), f32)]),
+        "moe_route k 17": (lambda x: moe_route(x, 17, 40)[0], [((32, 72), f32)]),
         "bucket_route past MAX_BUCKETS": (lambda d: bucket_route(d, MAX_BUCKETS + 1, 8)[2],
                                           [((100,), torch.int32)]),
         "segment_reduce float64": (lambda a, b: segment_reduce_fwd(a, b, "sum"),
