@@ -231,11 +231,14 @@ non-zero):
              cut takes an Adam step on one card; the peak reckoned first,
              ``jamba_grad_peak_gib``). Checks: the path's kernels launched
              layers (calls) x steps x 2 times (forward and remat's
-             recompute) and no other, every loss (and Jamba's gradient)
+             recompute), flash's backward kernel layers (calls) x steps
+             times, and no other, every loss (and Jamba's gradient)
              finite, each kernel's ``autograd.Function`` at its first own
              inputs (Whisper: the cross-attention): forward against the
              plain version, backward equal to the plain version's autograd
-             bit for bit; OLMo's first loss against the chunked attention's
+             bit for bit (flash's backward kernel: against the plain vjp
+             in f32 within ``FLASH_BWD_REL_L2``, with its device ms beside
+             its bound and the plain vjp's); OLMo's first loss against the chunked attention's
              (``TRAIN_LOSS_REL``); Mixtral's router gradient non-zero with
              the aux loss left out. Reports step ms, tokens/s, peak memory, one step's
              device busy time and idle share, whole-model gradients through
@@ -4171,15 +4174,44 @@ def _same_grads(label, fn_grads, plain_a, plain_b, names):
               f"{label}: the Function's d{nm} differs from the plain version's autograd")
 
 
+#: the flash backward kernel's dq, dk and dv against the plain vjp in f32
+#: from the same bf16 inputs, relative L2 a tensor: the kernel rounds P and
+#: dS to bf16 before the products that take them and its gradients at the
+#: end, and sums dQ over key blocks with atomics in no fixed order (the
+#: plain vjp in bf16 reads some 4e-3 against f32; the CUDA tests of
+#: tests/test_torch_flash_backward.py hold the same limit)
+FLASH_BWD_REL_L2 = 1.5e-2
+
+
+def flash_bwd_bound_ms(q_shape, k_shape, kw) -> float:
+    """The least time of the flash backward on this card: its five products
+    over the live pairs (10·hd a pair and head) at the bf16 peak, or q, o,
+    dO, dq, k, v, dk, dv in bf16 and two f32 rows statistics once at the
+    HBM rate, whichever is longer."""
+    from repro_torch.kernels.flash_attention.flash_attention import live_pairs
+
+    B, H, Sq, hd = q_shape
+    K, Skv = k_shape[1], k_shape[2]
+    flop = 10 * hd * B * H * live_pairs(Sq, Skv, kw["causal"], kw["window"], kw["q_offset"])
+    nbytes = 2 * hd * (4 * B * H * Sq + 4 * B * K * Skv) + 8 * B * H * Sq
+    return 1e3 * max(flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)
+
+
 def hold_flash_backward(qkv, kw):
     """Flash at the path's own (q, k, v): the Function's forward (the kernel)
     against ``attention_ref``, and its backward against ``attention_ref``'s
-    autograd with the same upstream gradient, bit for bit (the same
-    computation). Returns the kernel's and the backward's device ms."""
+    autograd with the same upstream gradient: on the ``wgmma`` route (the
+    backward kernel) each of dq, dk, dv against the plain vjp in f32 within
+    ``FLASH_BWD_REL_L2`` (no longer the same computation), elsewhere bit for
+    bit (the plain vjp itself). Returns the forward kernel's, the plain
+    backward's and the backward kernel's device ms (None off the kernel
+    route)."""
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ops import kernel_backward
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     leaves = [t.detach().clone().requires_grad_() for t in qkv]
@@ -4187,15 +4219,19 @@ def hold_flash_backward(qkv, kw):
     g = torch.randn(o.shape, generator=torch.Generator(device="cuda").manual_seed(11),
                     device="cuda").to(o.dtype)
 
-    def plain():
-        xs = [t.detach().clone().requires_grad_() for t in qkv]
+    def plain(xs=qkv, grad=g):
+        xs = [t.detach().clone().requires_grad_() for t in xs]
         ref = attention_ref(*xs, **kw)
-        return ref, torch.autograd.grad(ref, xs, g)
+        return ref, torch.autograd.grad(ref, xs, grad)
 
+    kernel = kernel_backward(qkv[0])
     with _deterministic():
         o.backward(g)
         ref, a = plain()
-        _, b = plain()
+        if kernel:
+            _, b = plain([t.float() for t in qkv], g.float())
+        else:
+            _, b = plain()
     o, ref = o.detach(), ref.detach()
     atol, rtol = FLASH_TOL[str(o.dtype)]
     rel = rel_l2(o, ref)
@@ -4204,11 +4240,29 @@ def hold_flash_backward(qkv, kw):
         f"{FLASH_BF16_REL_L2})")
     check(torch.allclose(o.float(), ref.float(), atol=atol, rtol=rtol)
           and rel <= FLASH_BF16_REL_L2, "train: flash forward differs from attention_ref")
-    _same_grads("flash", [t.grad for t in leaves], a, b, "qkv")
+    if kernel:
+        for nm, t, plain16, want in zip("qkv", leaves, a, b, strict=True):
+            got = rel_l2(t.grad, want)
+            log(f"train: flash: d{nm} of the backward kernel against the plain vjp in f32: "
+                f"relative L2 {got:.3e} (tolerance {FLASH_BWD_REL_L2}; the plain vjp in "
+                f"{plain16.dtype}: {rel_l2(plain16, want):.3e})")
+            check(t.grad.dtype == plain16.dtype and got <= FLASH_BWD_REL_L2
+                  and not torch.isnan(t.grad).any(),
+                  f"train: flash: the backward kernel's d{nm} is {got:.3e} from the plain vjp")
+    else:
+        _same_grads("flash", [t.grad for t in leaves], a, b, "qkv")
     with torch.no_grad():
         fwd_ms = device_ms(lambda: flash_attention_fwd(*qkv, **kw), 20)
-    bwd_ms = device_ms(lambda: plain(), 3)
-    return fwd_ms, bwd_ms
+    plain_ms = device_ms(lambda: plain(), 3)
+    kernel_ms = None
+    if kernel:
+        with torch.no_grad():
+            fo, lse = flash_attention_fwd(*qkv, with_lse=True, **kw)
+        kernel_ms = device_ms(lambda: flash_attention_bwd(*qkv, fo, lse, g, **kw), 20)
+        log(f"train: flash backward at {tuple(qkv[0].shape)}: kernel {kernel_ms} ms device "
+            f"(bound {flash_bwd_bound_ms(qkv[0].shape, qkv[1].shape, kw):.4f} ms), the plain "
+            f"vjp {plain_ms} ms")
+    return fwd_ms, plain_ms, kernel_ms
 
 
 def hold_ssd_forward(calls):
@@ -4372,7 +4426,8 @@ def train_run(label, cfg, B, S, steps, kernel, prepare=None, extra=None, passes=
     frames). ``prepare(bundle, params, batch)``, run first, checks what
     needs the initial weights and returns a report. Checks: ``kernel``
     launched ``passes`` (by default the layers) x steps x 2 times (forward
-    and remat's recompute), every loss finite. Reports step ms, tokens/s
+    and remat's recompute), flash's backward kernel ``passes`` x steps
+    times, every loss finite. Reports step ms, tokens/s
     (``tokens`` a batch, by default B x S), peak memory, and one step's
     device busy time and idle share."""
     import gc
@@ -4426,10 +4481,13 @@ def train_run(label, cfg, B, S, steps, kernel, prepare=None, extra=None, passes=
     want = {k: 0 for k in fns}
     if kernel:
         want[kernel] = (passes or cfg.num_layers) * steps * 2
+    if kernel == "flash_attention":  # bf16 flash: one backward kernel a call and step
+        want["flash_attention_bwd"] = (passes or cfg.num_layers) * steps
     check(launches == want, f"train: {label}: launches {launches}, expected {want}")
     if kernel == "flash_attention":
-        check(fns[kernel].launches_by_variant == {"wgmma": want[kernel]},
-              f"train: {label}: flash routes {fns[kernel].launches_by_variant}")
+        for k in (kernel, "flash_attention_bwd"):
+            check(fns[k].launches_by_variant == {"wgmma": want[k]},
+                  f"train: {label}: {k} routes {fns[k].launches_by_variant}")
     check(len(losses) == steps and all(np.isfinite(losses)),
           f"train: {label}: losses {losses}")
     step_ms = float(np.median(ms[1:]))
@@ -4464,7 +4522,7 @@ def train_olmo():
                                        _recording(seen, fpkg.flash_attention)):
             bundle.train_loss(params, batch)
         kw = dict(zip(("causal", "window", "softcap", "q_offset"), seen[0][3:7]))
-        fwd_ms, bwd_ms = hold_flash_backward(seen[0][:3], kw)
+        fwd_ms, bwd_ms, kernel_bwd_ms = hold_flash_backward(seen[0][:3], kw)
         lf, gf = bundle.value_and_grad(params, batch)
         lc, gc_ = chunked.value_and_grad(params, batch)
         rel = abs(float(lf) - float(lc)) / abs(float(lc))
@@ -4474,6 +4532,7 @@ def train_olmo():
         check(rel <= TRAIN_LOSS_REL, f"train: olmo: flash and chunked losses differ by {rel}")
         gap = _grad_gap("olmo", gf, gc_)
         return dict(loss_rel=rel, grad_gap=gap, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                    kernel_bwd_ms=kernel_bwd_ms,
                     first_loss=float(lf))
 
     B, S, steps = TRAIN_RUNS["olmo"]
@@ -4592,8 +4651,8 @@ def train_internvl():
     """InternVL2-1B, whole, bf16, ``remat="full"``, flash: batches of
     ``INTERNVL_TRAIN`` (256 f32 patches prepended to 1792 tokens, S = 2048,
     no loss on the prefix). Flash's Function at layer 0's own inputs:
-    forward against ``attention_ref``, backward bit for bit against its
-    autograd."""
+    forward against ``attention_ref``, the backward kernel against its
+    autograd in f32 (``FLASH_BWD_REL_L2``)."""
     import numpy as np
     import torch
 
@@ -4616,8 +4675,8 @@ def train_internvl():
         check(seen[0][0].shape[2] == P + S, f"train: internvl: flash saw Sq "
               f"{seen[0][0].shape[2]}, expected {P + S} (patches + tokens)")
         kw = dict(zip(("causal", "window", "softcap", "q_offset"), seen[0][3:7]))
-        fwd_ms, bwd_ms = hold_flash_backward(seen[0][:3], kw)
-        return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+        fwd_ms, bwd_ms, kernel_bwd_ms = hold_flash_backward(seen[0][:3], kw)
+        return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, kernel_bwd_ms=kernel_bwd_ms)
 
     return train_run("internvl", cfg, B, S, steps, "flash_attention", prepare, extra=patches,
                      tokens=B * (P + S))
@@ -4630,7 +4689,7 @@ def train_whisper():
     moves numpy; cast to bf16 on the card by ``model_inputs``), 12 flash
     calls a forward. The cross-attention Function
     (decoder layer 0) at its own inputs: forward against ``attention_ref``,
-    backward bit for bit against its autograd."""
+    the backward kernel against its autograd in f32 (``FLASH_BWD_REL_L2``)."""
     import numpy as np
     import torch
 
@@ -4657,8 +4716,8 @@ def train_whisper():
               and not cross[3], f"train: whisper: the cross call has q "
               f"{tuple(cross[0].shape)}, k {tuple(cross[1].shape)}, causal {cross[3]}")
         kw = dict(zip(("causal", "window", "softcap", "q_offset"), cross[3:7]))
-        fwd_ms, bwd_ms = hold_flash_backward(cross[:3], kw)
-        return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+        fwd_ms, bwd_ms, kernel_bwd_ms = hold_flash_backward(cross[:3], kw)
+        return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, kernel_bwd_ms=kernel_bwd_ms)
 
     return train_run("whisper", cfg, B, S, steps, "flash_attention", prepare, extra=frames,
                      passes=passes, tokens=B * (WHISPER_TRAIN_ENC + S))
@@ -4692,9 +4751,10 @@ def train_jamba():
     forward at all 7 mixers and the router at all 4 MoE slots against their
     plain versions, and the three Functions' backwards (flash at the
     attention slot, the SSD at the first mixer, the router at the first MoE
-    slot) bit for bit against the plain versions' autograd. Checks: flash
-    launched 1 x 2, the SSD 7 x 2, the router 4 x 2 (forward and remat's
-    recompute), a finite loss and gradient. Reports the call's ms and the
+    slot) against the plain versions' autograd (flash's backward kernel
+    within ``FLASH_BWD_REL_L2``, the others bit for bit). Checks: flash
+    launched 1 x 2 and its backward kernel once, the SSD 7 x 2, the router
+    4 x 2 (forward and remat's recompute), a finite loss and gradient. Reports the call's ms and the
     peak."""
     import gc
 
@@ -4750,7 +4810,8 @@ def train_jamba():
     hold_router_forward(route)
     kw = dict(zip(("causal", "window", "softcap", "q_offset"), flash[0][3:7]))
     report = {}
-    report["flash_fwd_ms"], report["flash_bwd_ms"] = hold_flash_backward(flash[0][:3], kw)
+    report["flash_fwd_ms"], report["flash_bwd_ms"], report["flash_kernel_bwd_ms"] = \
+        hold_flash_backward(flash[0][:3], kw)
     report["ssd_fwd_ms"], report["ssd_bwd_ms"] = hold_ssd_backward(ssd[0][:6])
     report["route_fwd_ms"], report["route_bwd_ms"] = hold_router_backward(route[0])
     del flash, ssd, route
@@ -4763,7 +4824,8 @@ def train_jamba():
     fns = K.launch_counters()
     launches = {k: fn.launches for k, fn in fns.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = {**{k: 0 for k in fns}, "flash_attention": 2, "ssd_scan": 14, "moe_route": 8}
+    want = {**{k: 0 for k in fns}, "flash_attention": 2, "flash_attention_bwd": 1,
+            "ssd_scan": 14, "moe_route": 8}
     check(launches == want, f"train: jamba: launches {launches}, expected {want}")
     finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all())
                                                 for g in grads.values())
@@ -4775,7 +4837,7 @@ def train_jamba():
     out = dict(report, steps=1, losses=[float(loss)], step_ms=ms,
                tokens_per_s=B * S / ms * 1e3, peak_gib=peak, reckoned_gib=est, seq=S,
                launches=launches, busy_ms=None, idle=None, fwd_ms=report["flash_fwd_ms"],
-               bwd_ms=report["flash_bwd_ms"])
+               bwd_ms=report["flash_bwd_ms"], kernel_bwd_ms=report["flash_kernel_bwd_ms"])
     del params, grads, bundle, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -4926,7 +4988,9 @@ def train_phase():
         log(f"train: {label}: step {r['step_ms']:.2f} ms, {r['tokens_per_s']:.0f} tokens/s, "
             f"peak {r['peak_gib']:.2f} GiB, one step's device busy {r['busy_ms']} ms, idle share "
             f"{r['idle']}" + (f"; forward kernel {r['fwd_ms']} ms device against the plain "
-                              f"backward's {r['bwd_ms']} ms" if "fwd_ms" in r else ""))
+                              f"backward's {r['bwd_ms']} ms" if "fwd_ms" in r else "")
+            + (f", the backward kernel {r['kernel_bwd_ms']} ms" if r.get("kernel_bwd_ms")
+               else ""))
     log(f"train: phase took {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -6149,6 +6213,13 @@ def main() -> int:
             if row["name"] == "moe_route":
                 row["ep_launches"] = dist["ep"]["launches"]["moe_route"]
             if row["name"] == "flash_attention":
+                olmo = trained["olmo"]
+                row["backward"] = {  # the backward kernel at OLMo's layer 0 in training
+                    "kernel_ms": olmo["kernel_bwd_ms"], "plain_ms": olmo["bwd_ms"],
+                    "train_launches": olmo["launches"]["flash_attention_bwd"],
+                    "family_train_launches": {
+                        k: trained[k]["launches"]["flash_attention_bwd"]
+                        for k in FAMILY_TRAIN_RUNS}}
                 row["pipeline_launches"] = dist["pipeline"]["launches"]["flash_attention"]
                 row["dryrun_priced_calls"] = (
                     launched["olmo"]["prefill"]["priced_calls"]["flash_attention"])

@@ -20,7 +20,9 @@ they are given:
                     top-k and expert capacity ordinals; both one pass with a
                     decoupled look-back, the second the MoE FFN's router
   flash_attention — ``flash_attention``: online-softmax attention forward,
-                    the transformers' prefill attention
+                    the transformers' prefill attention, and on its
+                    ``wgmma`` route its backward (``flash_attention_bwd``,
+                    which replaces no TPU kernel), the training backward
   decode_attention — ``decode_attention``: one query token a slot against
                     its live rows of the bf16 KV slab (split over the rows
                     where the slots are few), the transformers' decode
@@ -35,7 +37,8 @@ dispatching function carries two plain integer counters: ``launches`` (one
 per call that launched the kernel) and ``tune_launches`` (the same, during
 an autotune sweep, so sweeps are counted apart from the path's own runs);
 a kernel with more than one route also counts its launches per route in
-``launches_by_variant`` (flash attention: ``wgmma`` or ``fma``; decode
+``launches_by_variant`` (flash attention: ``wgmma`` or ``fma``, its
+backward ``wgmma`` only; decode
 attention: ``whole`` or ``split``), so a run
 can show which route its path went through.
 
@@ -191,7 +194,8 @@ def launch_counters() -> dict:
     dropless MoE's grouped expert products (``moe_experts``: PyTorch's
     grouped GEMM, not a kernel of the port, counted per call on the card)."""
     from repro_torch.kernels.decode_attention.decode_attention import decode_attention_fwd
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
     from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
     from repro_torch.kernels.moe_route.route import bucket_route_fwd
     from repro_torch.kernels.segment_reduce.segment_reduce import segment_reduce_fwd
@@ -203,6 +207,7 @@ def launch_counters() -> dict:
             "prefix_scan": prefix_scan_fwd,
             "bucket_route": bucket_route_fwd,
             "flash_attention": flash_attention_fwd,
+            "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention_fwd,
             "ssd_scan": ssd_scan_fwd,
             "moe_route": moe_route_fwd,

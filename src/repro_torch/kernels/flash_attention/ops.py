@@ -10,36 +10,48 @@ padded here, and ``block_q``/``block_k`` are kept for the signature only
 
 ``flash_attention`` is a ``torch.autograd.Function`` as the JAX wrapper is
 a ``custom_vjp``: the forward is ``flash_attention_fwd`` (the kernel on the
-card), which records no graph, and the backward recomputes through
-``attention_ref`` and returns its vjp, from the saved ``(q, k, v)``. The
-JAX package has no backward kernel either. The inputs are made contiguous
-before the Function (the kernel reads them so), so the gradient flows back
-through the caller's transposes.
+card), which records no graph. ``variant`` picks the backward before
+anything runs: a CUDA call on the ``wgmma`` route (bf16 at hd 64 and 128)
+saves ``(q, k, v, o, lse)``, its forward writing each row's log-sum-exp,
+and its backward is the kernel ``flash_attention_bwd``; every other call
+(the CPU, the ``fma`` route) saves ``(q, k, v)`` and its backward
+recomputes through ``attention_ref`` and returns its vjp, as the JAX
+package's does. The inputs are made contiguous before the Function (the
+kernel reads them so), so the gradient flows back through the caller's
+transposes.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention_fwd
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.flash_attention import (
+    attention_vjp, flash_attention_bwd, flash_attention_fwd, variant)
+
+
+def kernel_backward(q) -> bool:
+    """Whether the Function's backward at ``q`` is the kernel: a CUDA
+    tensor on the ``wgmma`` route."""
+    return q.is_cuda and variant(q.dtype, q.shape[-1]) == "wgmma"
 
 
 class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, q_offset):
-        ctx.statics = (causal, window, softcap, q_offset)
+        ctx.statics = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+        if kernel_backward(q) and any(ctx.needs_input_grad[:3]):
+            o, lse = flash_attention_fwd(q, k, v, with_lse=True, **ctx.statics)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
         ctx.save_for_backward(q, k, v)
-        return flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, q_offset=q_offset)
+        return flash_attention_fwd(q, k, v, **ctx.statics)
 
     @staticmethod
     def backward(ctx, g):
-        causal, window, softcap, q_offset = ctx.statics
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            o = attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
-                              q_offset=q_offset)
-        dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
+        saved = ctx.saved_tensors  # once: a checkpoint's recompute unpacks them once
+        if kernel_backward(saved[0]):
+            dq, dk, dv = flash_attention_bwd(*saved, g.contiguous(), **ctx.statics)
+        else:
+            dq, dk, dv = attention_vjp(*saved, g, **ctx.statics)
         return dq, dk, dv, None, None, None, None
 
 

@@ -6,7 +6,9 @@ The chunked path here is the plain one; ``cfg.attn_impl == "flash"``
 dispatches prefill and the training forward to the flash kernel
 (``repro_torch.kernels.flash_attention``: CUDA on the card, its plain
 version on the CPU; differentiable through its ``autograd.Function``,
-whose backward is the plain version's, as in the JAX package), and decode
+whose backward on the card in bf16 at hd 64 and 128 is the backward kernel
+``flash_attention_bwd``, and elsewhere the plain version's vjp, as in the
+JAX package), and decode
 to the decode kernel (``repro_torch.kernels.decode_attention``).
 ``attention(..., kv=)`` is cross-attention (the encoder-decoder's decoder):
 k and v are projected from ``kv``, without RoPE, and flash runs with the
