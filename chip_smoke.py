@@ -20,6 +20,12 @@ shapes those paths gave it, and reports. Run from the repository root:
 
     PYTHONPATH=src python3 chip_smoke.py          # N = 2^26 words, p = 8
 
+Each kernel's edge shapes (ragged lengths, every instance, both routes,
+ties and non-finite inputs, launches back to back) are held by the tests
+marked ``cuda``: ``PYTHONPATH=src python3 -m pytest -q -m cuda tests/``
+(``-k <kernel>`` for one kernel), which take this file's tolerances where
+both hold a kernel.
+
 Phases, all of them on every run (each prints its lines; any failure exits
 non-zero):
 
@@ -32,27 +38,7 @@ non-zero):
              routes), ptxas' register and spill lines, and each kernel's
              count of tensor-core instructions (``HGMMA``: wgmma, ``HMMA``:
              mma.sync) in its SASS where the toolkit has ``cuobjdump``;
-2. edge    — every kernel against its plain version at edge shapes; the
-             flash kernel over dtypes, GQA groups, head dims, masks and
-             ragged lengths (in bf16 also lengths of several of its tiles,
-             up to 2048), each case counted under the route the wrapper
-             names for it; the decode kernel over q dtypes, GQA groups 1
-             to 8, head dims, windows, soft-caps and ragged positions on
-             both routes (whole and split), NaN rows past the positions
-             ignored; the SSD scan over dtypes, groups, chunks,
-             widths, batches, 2, 3 and 8 chunks and ragged lengths; the
-             router over expert counts up to 64, k, token counts from 1 to
-             8192 (one tile, a tile's edge, many tiles), capacities, tied
-             and non-finite logits; the segmented-scan kernel over D, dtypes,
-             ops, N at its tile's edge and over 20000 tiles, and boundaries
-             only at row 0, at every row or at random; the prefix scan over
-             ops, int32, bool, integer-valued f32 and f32 with a NaN row,
-             both directions, N at its tile's edge and over 20000 tiles;
-             the bucket router over P up to 16384, sentinel rows, all rows
-             to one bucket (also over 20000 tiles), capacities below the
-             demand, ragged N and N = 0; each look-back kernel's case
-             launched back to back, every result held;
-3. hybrid  — the hybrid job, twice with ``ignis.kernels=auto`` (launch
+2. hybrid  — the hybrid job, twice with ``ignis.kernels=auto`` (launch
              counters reset before each run) and once with ``off``: branch A
              ``map → reduceByKey(add)`` and ``reduceByKey(max)`` (PSRS sort
              stages whose post hook runs the segment and prefix kernels; the
@@ -94,7 +80,7 @@ non-zero):
              identical, and ``price_fn`` of the narrow stage and of the
              calibration matmul (exactly 2n^3 FLOP) against their device
              times, with the scale ``fit()`` sets;
-4. apps    — after the hybrid phase's memory is released, the paper's
+3. apps    — after the hybrid phase's memory is released, the paper's
              evaluation apps (``repro_torch.apps``) on ``p = 8`` ranks, each
              at full size in ignis mode (``APPS``), cold then warm: TeraSort
              (2^26 int32 keys through ``map → sort → count``; the sorted keys
@@ -122,7 +108,7 @@ non-zero):
              the spark/ignis ratio, the pipe's wall, the warm wall against
              the device's busy time (``torch.profiler``), peak memory and
              the hybrid kernels' launches; no app may fall back;
-5. recovery — after the apps' memory is released, on ``p = 8`` ranks of
+4. recovery — after the apps' memory is released, on ``p = 8`` ranks of
              the card with 8 rank slots (``RECOVERY``): 2^26 (key, value)
              int32 rows (zipf(1.1) keys mod 2^20, as the hybrid's) are
              checkpointed; ``kill_executor(3)`` and a reduceByKey restore
@@ -146,7 +132,7 @@ non-zero):
              restore ms and GB/s, resize ms apart from the new world's
              autotune sweeps, batches/s and commit latency per tenant,
              and the hybrid kernels' launches (each launched);
-6. qwen,   — after the previous phase's memory is released, each model
+5. qwen,   — after the previous phase's memory is released, each model
    mamba,    (random bf16 weights from a seeded generator) serves 8 requests
    mixtral,  of 512–2048 prompt tokens x 32 new tokens on 4 slots of a
    olmo, yi,
@@ -186,7 +172,7 @@ non-zero):
              which this run does not measure); the router at the largest
              prefill and at a decode tick (T = 4), by device time
              (``torch.profiler``) and the wrapper's host µs per call;
-7. jamba,  — after Phi's memory is released, the other families
+6. jamba,  — after Phi's memory is released, the other families
    internvl, (``FAMILY_PHASES``), random bf16 weights, flash in every
    whisper   prefill: Jamba-1.5-Large at full width, one block of 8 layers
              with 8 of its 16 experts a MoE slot (``JAMBA_LAYERS``,
@@ -210,7 +196,7 @@ non-zero):
              against the chunked attention's (``SERVE_REL_L2``; Jamba's with
              the router's plain version, ``MOE_REL_L2``). Reports the serve
              cells' figures and each phase's seconds;
-8. train   — after the serve phases' memory is released: the paper's
+7. train   — after the serve phases' memory is released: the paper's
              hybrid training app (``examples/torch_hybrid_train.py``'s
              dataflow phase on a ``cuda`` worker, then ``launch.train`` of
              ``ignis-100m`` on the packed corpus, ``TRAIN_HYBRID``): the
@@ -246,8 +232,8 @@ non-zero):
              stacks are chaotic), each kernel's forward device ms against
              its plain backward's, and checkpoint save and restore ms; the
              kernels line gains each model kernel's ``train_launches`` and
-             ``family_launches`` (the phases of 7 and their train runs);
-9. distributed — after the train phase's memory is released, on meshes
+             ``family_launches`` (the phases of 6 and their train runs);
+8. distributed — after the train phase's memory is released, on meshes
              of virtual ranks of the card (``launch.mesh``): Phi-3.5-MoE at
              full width and ``PHI_LAYERS`` layers with ``moe_ep=True``
              under ``make_local_mesh(8, 1)`` (E_loc = 2), one prefill of
@@ -271,7 +257,7 @@ non-zero):
              save and restore ms and each placement's bytes a rank. The
              kernels line gains ``ep_launches`` (the router) and
              ``pipeline_launches`` (flash);
-10. launch — after phase 9's memory is released, ``launch/dryrun`` and
+9. launch  — after phase 8's memory is released, ``launch/dryrun`` and
              ``launch/submit``, the phase's wall time logged against its
              ``LAUNCH_BUDGET_S`` = 60 s. The sweep: ``run_cell`` for every
              ``ASSIGNED`` arch and each of its ``shape_cells()`` (34 cells)
@@ -862,164 +848,9 @@ class _Rand:
         return torch.rand(shape, generator=self.g, device=self.dev)
 
 
-def edge_checks():
-    """Every kernel against its plain version at edge shapes: ragged N
-    (not a block multiple), N = 0 and 1, D in {1, 4}, every op, int32 / f32
-    / bool, a non-zero identity at invalid rows, the flat multi-rank layout,
-    all rows to one destination, C below the demand, several scan levels.
-    Integers and integer-valued f32 bit for bit; random f32 sums within
-    rtol 1e-5 (the association order differs)."""
-    import torch
-
-    from repro_torch.core.shuffle import segmented_reduce
-    from repro_torch.kernels.moe_route.ops import bucket_route
-    from repro_torch.kernels.moe_route.ref import bucket_route_ref
-    from repro_torch.kernels.segment_reduce.ops import segment_reduce, segment_totals
-    from repro_torch.kernels.segment_reduce.ref import segment_reduce_ref
-    from repro_torch.kernels.ssd_scan.ops import prefix_scan
-    from repro_torch.kernels.ssd_scan.ref import prefix_scan_ref
-
-    r = _Rand(1)
-    fns = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
-    for o in ("sum", "max", "min"):
-        for nn, dd, dt in ((1, 1, torch.int32), (1000, 4, torch.int32),
-                           (4097, 1, torch.int32), (70001, 4, torch.float32),
-                           (300000, 1, torch.int32)):
-            keys = torch.sort(r.ints(nn, 0, max(nn // 7, 1))).values
-            valid = r.rand(nn) < 0.8
-            vals = r.ints(nn, -50, 50, (nn, dd)).to(dt)  # integer-valued: exact
-            hk, sk = segment_reduce(keys, valid, vals, op=o, block=128)
-            hr, sr = segment_reduce_ref(keys, valid, vals, op=o)
-            exact(hk, hr, f"segment_reduce heads n={nn} {o}")
-            exact(sk, sr, f"segment_reduce n={nn} d={dd} {dt} {o}")
-            seg = max(nn // 8, 1)
-            ident = torch.tensor(41, dtype=dt, device=r.dev)
-            _, tk = segment_totals(keys, valid, vals, o, ident, block=128, seg=seg)
-            _, tr = segmented_reduce(keys, valid, vals, fns[o], ident, seg=seg)
-            exact(tk, tr, f"segment_totals n={nn} {o} (rank-flat seg={seg}, identity 41)")
-    z = torch.zeros(0, dtype=torch.int32, device=r.dev)
-    h, t = segment_totals(z, z.bool(), z, "sum", 0)
-    check(h.shape == (0,) and t.shape == (0,), "segment_totals on N = 0")
-    fv = r.rand(70001, 4)
-    keys = torch.sort(r.ints(70001, 0, 500)).values
-    valid = torch.ones(70001, dtype=torch.bool, device=r.dev)
-    _, sk = segment_reduce(keys, valid, fv, op="sum", block=256)
-    _, sr = segment_reduce_ref(keys, valid, fv, op="sum")
-    check(torch.allclose(sk, sr, rtol=1e-5, atol=1e-4),
-          "segment_reduce random f32 sums beyond rtol 1e-5, atol 1e-4")
-    log("edge: segment_reduce / segment_totals — ops x {i32, f32} x "
-        "N {1, 1000, 4097, 70001, 300000} x D {1, 4}, rank-flat seg, N=0: OK")
-
-    for o in ("sum", "max", "min"):
-        for nn in (0, 1, 5, 513, 100003, 3000001):
-            for dt in ("int32", "bool"):
-                xx = r.ints(nn) if dt == "int32" else r.ints(nn, 0, 2) == 0
-                for rev in (False, True):
-                    exact(prefix_scan(xx, op=o, block=64, reverse=rev),
-                          prefix_scan_ref(xx, op=o, reverse=rev),
-                          f"prefix_scan n={nn} {dt} {o} reverse={rev}")
-    xf = r.rand(100003)
-    check(torch.allclose(prefix_scan(xf, op="sum"),
-                         prefix_scan_ref(xf, "sum"), rtol=1e-5, atol=1e-3),
-          "prefix_scan random f32 sums beyond rtol 1e-5, atol 1e-3")
-    log("edge: prefix_scan — ops x {i32, bool} x N {0, 1, 5, 513, 100003, "
-        "3000001} x reverse: OK")
-
-    for nn, pp, cc in ((0, 4, 2), (1, 2, 1), (100, 8, 5), (600, 2, 400),
-                       (257, 5, 1), (100003, 64, 900), (2000003, 64, 20000)):
-        dd = r.ints(nn, 0, pp)
-        for a, b in zip(bucket_route(dd, pp, cc, block=64),
-                        bucket_route_ref(dd, pp, cc)):
-            exact(a, b, f"bucket_route n={nn} p={pp} C={cc}")
-    one = torch.zeros(90, dtype=torch.int32, device=r.dev)
-    for a, b in zip(bucket_route(one, 4, 100, block=32),
-                    bucket_route_ref(one, 4, 100)):
-        exact(a, b, "bucket_route all rows to one destination")
-    log("edge: bucket_route — ragged N, N=0, p {2, 4, 5, 8, 64}, C below "
-        "demand, all rows to one destination: OK")
-
-
-#: the segmented scan's edge cases: D, then boundaries only at row 0 (one
-#: segment over every tile: the look-back walks back until it meets a
-#: published prefix), at every row, and at 5 % of the rows
-SEG_EDGE_D = (1, 2, 3, 8)
-SEG_EDGE_KINDS = ("row0", "every", "random")
-#: back-to-back launches of each case: a tile counter or look-back word left
-#: over from the launch before would hand out tiles past the grid or carry a
-#: stale prefix
-BACK_TO_BACK = 3
 #: the segmented scan's blocks (threads per block) the autotune sweeps by
 #: default (``ignis.kernels.blocks``); its row reports the fastest
 SEG_BLOCKS = (128, 256, 512)
-
-
-def segment_edge_checks():
-    """The segmented-scan kernel alone against ``segment_scan_plain`` on the
-    card: D in ``SEG_EDGE_D``, int32 and f32, sum/max/min, boundaries as in
-    ``SEG_EDGE_KINDS``; N of 1, a tile's rows - 1, a tile (one tile), a tile
-    + 1, three tiles + 1 (block 256: tiles of 4096 rows at D = 1, 1024
-    otherwise) and over 20000 tiles (block 32: tiles of 512 and 128 rows).
-    The values are integers (the f32 ones too, and every partial sum stays
-    below 2^24), so every case is held bit for bit; random f32 sums at
-    random boundaries are held within rtol 1e-5, atol 1e-4. Each case runs
-    ``BACK_TO_BACK`` launches with no synchronize between them, and every
-    result is held."""
-    import itertools
-
-    import torch
-
-    from repro_torch.kernels.segment_reduce.ref import segment_scan_plain
-    from repro_torch.kernels.segment_reduce.segment_reduce import (rows_per_tile,
-                                                                   segment_reduce_fwd)
-
-    r = _Rand(8)
-    n_cases, bad, most_tiles = 0, [], 0
-
-    def flags(kind, n):
-        if kind == "row0":
-            hb = torch.zeros(n, dtype=torch.bool, device=r.dev)
-        elif kind == "every":
-            hb = torch.ones(n, dtype=torch.bool, device=r.dev)
-        else:
-            hb = r.rand(n) < 0.05
-        hb[0] = True
-        return hb
-
-    def run(vals, hb, op, block, what, exact_bits):
-        before = segment_reduce_fwd.launches
-        outs = [segment_reduce_fwd(vals, hb, op=op, block=block) for _ in range(BACK_TO_BACK)]
-        ref = segment_scan_plain(vals, hb, op)
-        if segment_reduce_fwd.launches != before + BACK_TO_BACK:
-            bad.append(f"{what}: not counted as {BACK_TO_BACK} launches")
-        for i, o in enumerate(outs):
-            same = o.dtype == ref.dtype and o.shape == ref.shape and (
-                torch.equal(o, ref) if exact_bits
-                else torch.allclose(o, ref, rtol=1e-5, atol=1e-4))
-            if not same:
-                bad.append(f"{what}, launch {i + 1}: max abs err {max_err(o, ref)}")
-
-    for d, dt, op in itertools.product(SEG_EDGE_D, (torch.int32, torch.float32),
-                                       ("sum", "max", "min")):
-        tile = rows_per_tile(d, 256)
-        many = rows_per_tile(d, 32) * 20000 + 1
-        most_tiles = max(most_tiles, -(-many // rows_per_tile(d, 32)))
-        for n, block in ((1, 256), (tile - 1, 256), (tile, 256), (tile + 1, 256),
-                         (3 * tile + 1, 256), (many, 32)):
-            vals = r.ints(n, -50, 50, (n, d)).to(dt)
-            for kind in SEG_EDGE_KINDS:
-                run(vals, flags(kind, n), op, block,
-                    f"segment_reduce N={n} D={d} {dt} {op} block={block} {kind}", True)
-                n_cases += 1
-    for d, n in itertools.product(SEG_EDGE_D, (4097, 70001, 1000001)):
-        run(r.rand(n, d) - 0.5, flags("random", n), "sum", 256,
-            f"segment_reduce random f32 sums N={n} D={d}", False)
-        n_cases += 1
-    torch.cuda.synchronize()
-    check(not bad, f"segment_reduce edge checks: {len(bad)} failed of {n_cases}: {bad[:6]}")
-    log(f"edge: segment_reduce kernel — {n_cases} cases (D {SEG_EDGE_D} x i32/f32 x sum/max/"
-        f"min x N 1, a tile -1, a tile, +1, 3 tiles + 1 and {most_tiles} tiles x boundaries "
-        f"{SEG_EDGE_KINDS}, bit for bit; random f32 sums within rtol 1e-5, atol 1e-4), each "
-        f"launched {BACK_TO_BACK} times back to back: OK")
 
 
 def same_bits(a, b, nan_rows=False) -> bool:
@@ -1037,182 +868,6 @@ def same_bits(a, b, nan_rows=False) -> bool:
         return torch.equal(na, nb) and torch.equal(a[~na].view(torch.int32),
                                                    b[~nb].view(torch.int32))
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
-
-
-#: a random f32 running sum's error depends on the order of its adds, and
-#: grows with N: the kernel adds within a tile by a tree and across tiles by
-#: the carry, torch.cumsum in CUB's order, so each is held against the scan in
-#: float64, the kernel to this many times torch.cumsum's own error
-F32_SUM_ERR_RATIO = 2.0
-#: the prefix scan's inputs: int32, bool, integer-valued f32, and
-#: integer-valued f32 with one NaN row (``PREFIX_NAN_AT``) and -0 rows
-PREFIX_KINDS = ("int32", "bool", "f32", "f32-nan")
-#: where the NaN row goes: the first row, mid-tile, a tile's first row, the last
-PREFIX_NAN_AT = ("first", "mid", "edge", "last")
-
-
-def prefix_edge_checks():
-    """The prefix-scan kernel through its wrapper (``ops.prefix_scan``, which
-    scans bool as int32, and passes ``reverse`` to the kernel) against
-    ``prefix_scan_ref`` (torch.cumsum, cummax, cummin) on the card: every op
-    x ``PREFIX_KINDS`` x both directions x N a tile's rows - 1, a tile, + 1,
-    three tiles + 1 (block 256: tiles of 4096 rows) and over 20000 tiles
-    (block 32: tiles of 512 rows); the NaN kind once for each of
-    ``PREFIX_NAN_AT``. Max and min bit for bit, NaN payloads and zero signs
-    included; sums bit for bit (integer-valued, every partial sum below
-    2^24), with NaN at the same rows where there is a NaN row. Random f32
-    sums, whose rounding depends on the order of the adds, against the scan
-    in float64: the kernel's largest error at most ``F32_SUM_ERR_RATIO``
-    times ``torch.cumsum``'s in float32 on the same input (or 1e-4). Each
-    case ``BACK_TO_BACK`` launches with no synchronize between them, every
-    result held."""
-    import itertools
-
-    import torch
-
-    from repro_torch.kernels.ssd_scan.ops import prefix_scan
-    from repro_torch.kernels.ssd_scan.prefix import prefix_scan_fwd, rows_per_tile
-    from repro_torch.kernels.ssd_scan.ref import prefix_scan_ref
-
-    r = _Rand(9)
-    n_cases, bad = 0, []
-    tile, many_tile = rows_per_tile(256), rows_per_tile(32)
-    many = many_tile * 20000 + 1
-
-    def inputs(kind, n):
-        v = r.ints(n, -50, 50)
-        if kind == "int32":
-            return [("", v)]
-        if kind == "bool":
-            return [("", v > 20)]
-        v = v.float()
-        if kind == "f32":
-            return [("", v)]
-        v[v == 0] = -0.0
-        out = []
-        for at in PREFIX_NAN_AT:
-            w = v.clone()
-            w[{"first": 0, "mid": min(tile // 2, n - 1), "edge": min(tile, n - 1),
-               "last": n - 1}[at]] = float("nan")
-            out.append((f" NaN {at}", w))
-        return out
-
-    def run(x, op, block, rev, what, hold):
-        before = prefix_scan_fwd.launches
-        outs = [prefix_scan(x, op=op, block=block, reverse=rev) for _ in range(BACK_TO_BACK)]
-        ref = prefix_scan_ref(x, op, rev)
-        if prefix_scan_fwd.launches != before + BACK_TO_BACK:
-            bad.append(f"{what}: not counted as {BACK_TO_BACK} launches")
-        for i, o in enumerate(outs):
-            if not hold(o, ref):
-                bad.append(f"{what}, launch {i + 1}: max abs err {max_err(o, ref)}")
-
-    for op, kind, rev in itertools.product(("sum", "max", "min"), PREFIX_KINDS, (False, True)):
-        for n, block in ((tile - 1, 256), (tile, 256), (tile + 1, 256), (3 * tile + 1, 256),
-                         (many, 32)):
-            for note, x in inputs(kind, n):
-                nan_rows = op == "sum" and bool(note)
-                run(x, op, block, rev, f"prefix_scan N={n} {kind}{note} {op} reverse={rev} "
-                    f"block={block}", lambda a, b: same_bits(a, b, nan_rows))
-                n_cases += 1
-    worst = 0.0
-    for n, rev in itertools.product((4097, 100003, 3000001), (False, True)):
-        x = r.rand(n) - 0.5
-        exact64 = prefix_scan_ref(x.double(), "sum", rev)
-        lib_err = max_err(prefix_scan_ref(x, "sum", rev), exact64)
-        worst = max(worst, max_err(prefix_scan(x, op="sum", block=256, reverse=rev), exact64)
-                    / max(lib_err, 1e-30))
-        run(x, "sum", 256, rev, f"prefix_scan random f32 sums N={n} reverse={rev} (torch.cumsum "
-            f"{lib_err} from float64)",
-            lambda a, b: max_err(a, exact64) <= max(F32_SUM_ERR_RATIO * lib_err, 1e-4))
-        n_cases += 1
-    torch.cuda.synchronize()
-    check(not bad, f"prefix_scan edge checks: {len(bad)} failed of {n_cases}: {bad[:6]}")
-    log(f"edge: prefix_scan kernel — {n_cases} cases (sum/max/min x {PREFIX_KINDS} (a NaN row "
-        f"at {PREFIX_NAN_AT}, -0 rows) x reverse x N a tile -1, a tile, +1, 3 tiles + 1 and "
-        f"{-(-many // many_tile)} tiles, bit for bit; random f32 sums from float64 at most "
-        f"{worst:.3f} times torch.cumsum's error, bound {F32_SUM_ERR_RATIO}), each launched "
-        f"{BACK_TO_BACK} times back to back through the wrapper: OK")
-
-
-#: the bucket router's bucket counts: the joins' P = p^2 at p = 2, 3, 4, 6
-#: (4 and 6: the recovery phase's resized worlds), 8 and on to 64, and
-#: 16384 (p = 128), whose one warp's table passes 48 KB
-ROUTE_EDGE_P = (4, 9, 16, 36, 64, 256, 1024, 4096, 16384)
-
-
-def route_edge_checks():
-    """The bucket-router kernel (``bucket_route_fwd``) against
-    ``bucket_route_ref`` (the stable argsort) on the card: P in
-    ``ROUTE_EDGE_P``, N of 1, a tile's rows - 1, a tile (one tile, no
-    look-back), + 1 and three tiles + 1 at block 512, destinations random,
-    a fifth of them the sentinel P, a fifth past it (ids whose low bits
-    name a real bucket among them), or all to one bucket, with a capacity
-    below the fullest bucket's demand and one above every bucket's; all rows
-    to one bucket over 20000 tiles at P = 64 (block 32); N = 0 through the
-    wrapper. pos, keep and counts bit for bit. Each case ``BACK_TO_BACK``
-    launches with no synchronize between them, every result held."""
-    import itertools
-
-    import torch
-
-    from repro_torch.kernels.moe_route import route
-    from repro_torch.kernels.moe_route.ops import bucket_route
-    from repro_torch.kernels.moe_route.ref import bucket_route_ref
-
-    r = _Rand(10)
-    n_cases, bad, dropped = 0, [], 0
-
-    def dests(kind, n, p):
-        if kind == "one":
-            return torch.full((n,), p // 2, dtype=torch.int32, device=r.dev)
-        d = r.ints(n, 0, p)
-        if kind == "sentinel":
-            d[r.rand(n) < 0.2] = p
-        if kind == "past":  # past the sentinel, some whose low bits name a bucket
-            past = r.rand(n) < 0.2
-            d[past] = r.ints(n, p + 1, 4 * p + 4)[past]
-        return d
-
-    def run(d, p, C, block, what):
-        before = route.bucket_route_fwd.launches
-        outs = [route.bucket_route_fwd(d, p, C, block=block) for _ in range(BACK_TO_BACK)]
-        ref = bucket_route_ref(d, p, C)
-        if route.bucket_route_fwd.launches != before + BACK_TO_BACK:
-            bad.append(f"{what}: not counted as {BACK_TO_BACK} launches")
-        for i, got in enumerate(outs):
-            for a, b, nm in zip(got, ref, ("pos", "keep", "counts")):
-                if not same_bits(a, b):
-                    bad.append(f"{what}, launch {i + 1}: {nm} differs")
-        return not bool(ref[1].all())
-
-    for p, kind in itertools.product(ROUTE_EDGE_P, ("random", "sentinel", "past", "one")):
-        tile = route.geometry(p, 512)[1]
-        for n in (1, tile - 1, tile, tile + 1, 3 * tile + 1):
-            d = dests(kind, n, p)
-            for C in (max(1, n // p // 2), n + 1):
-                dropped += run(d, p, C, 512, f"bucket_route N={n} P={p} C={C} {kind}")
-                n_cases += 1
-    tile = route.geometry(64, 32)[1]
-    n = tile * 20000 + 1
-    dropped += run(dests("one", n, 64), 64, n // 3, 32,
-                   f"bucket_route N={n} P=64 all to one bucket over 20001 tiles")
-    n_cases += 1
-    z = torch.zeros(0, dtype=torch.int32, device=r.dev)
-    for got in (bucket_route(z, 64, 5), route.bucket_route_fwd(z, 64, 5)):
-        if not (got[0].shape == (0,) and got[1].shape == (0,)
-                and torch.equal(got[2], torch.zeros(64, dtype=torch.int32, device=r.dev))):
-            bad.append("bucket_route N=0")
-    n_cases += 1
-    torch.cuda.synchronize()
-    check(not bad, f"bucket_route edge checks: {len(bad)} failed of {n_cases}: {bad[:6]}")
-    check(dropped > 0, "bucket_route edge checks: no case dropped a row")
-    log(f"edge: bucket_route kernel — {n_cases} cases (P {ROUTE_EDGE_P} x random, a fifth to "
-        f"the sentinel, a fifth past it, all to one bucket x N 1, a tile -1, a tile, +1, "
-        f"3 tiles + 1 x C below "
-        f"and above the demand ({dropped} dropping rows); all rows to one bucket over 20001 "
-        f"tiles at P = 64; N = 0): pos, keep and counts bit for bit, each launched "
-        f"{BACK_TO_BACK} times back to back: OK")
 
 
 def kernel_checks(main_launches, reps: int):
@@ -2506,8 +2161,8 @@ SERVE_REL_L2 = 5e-2
 #: layer at each layer's own inputs (``SSD_TOL``)
 SSM_F32_REL_L2 = 1e-3
 #: relative L2 between the router kernel's and its plain version's prefill
-#: logits: the two route identically (expert ids and ordinals are checked bit
-#: for bit in the edge phase) and their weights differ in the last bits, so
+#: logits: the two route identically (expert ids and ordinals are held bit
+#: for bit by the ``cuda`` tests) and their weights differ in the last bits, so
 #: the logits differ only by summation order
 MOE_REL_L2 = 1e-2
 SERVE_SLOTS, SERVE_CACHE_LEN, SERVE_REQUESTS, SERVE_NEW = 4, 4096, 8, 32
@@ -2568,164 +2223,6 @@ def flash_flop(q_shape, k_shape, causal, q_offset):
     return 4 * hd * B * H * rows
 
 
-#: flash edge lengths: ragged against both routes' tiles, for both dtypes
-FLASH_LENS = (1, 127, 129, 1000)
-#: and, in bf16, lengths that span several of the wgmma route's 128-row and
-#: 64-key tiles, the serve path's longest prompt among them
-FLASH_LONG_LENS = (255, 1819, 2048)
-
-
-def flash_edge_checks():
-    """The flash kernel against its plain version on the card: bf16 and
-    f32, G in {1, 4, 5} (4: Mixtral's and Phi-3.5-MoE's GQA), hd in {64,
-    128, 256}, causal on and off, window in {None, 16}, softcap in {0, 50},
-    ragged Sq, Skv in ``FLASH_LENS`` (in bf16 also ``FLASH_LONG_LENS``) with q_offset = Skv - Sq where Sq <= Skv
-    (0 otherwise; a window then leaves rows with no live column, which the
-    plain version and the kernel define differently, so that pair is not
-    run). bf16 is also held in relative L2 (``FLASH_BF16_REL_L2``). No
-    output may be NaN, and each call must count one launch of the route
-    ``variant`` gives its dtype and head dim."""
-    import itertools
-
-    import torch
-
-    from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_fwd, variant)
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-
-    g = torch.Generator(device="cuda").manual_seed(2)
-    n, worst, by_variant = 0, {}, {}
-    worst_l2 = {"short": 0.0, "long": 0.0}  # bf16; long: Sq or Skv in FLASH_LONG_LENS
-    for dt, G, hd in itertools.product((torch.bfloat16, torch.float32), (1, 4, 5),
-                                       (64, 128, 256)):
-        K, B = 2, 2
-        atol, rtol = FLASH_TOL[str(dt)]
-        lens = FLASH_LENS + (FLASH_LONG_LENS if dt == torch.bfloat16 else ())
-        route = variant(dt, hd)
-        for Sq, Skv in itertools.product(lens, lens):
-            def rnd(*shape):
-                return torch.randn(shape, generator=g, device="cuda").to(dt)
-
-            q = rnd(B, K * G, Sq, hd) * 4
-            k, v = rnd(B, K, Skv, hd), rnd(B, K, Skv, hd)
-            off = Skv - Sq if Sq <= Skv else 0
-            for causal, window, cap in itertools.product((True, False), (None, 16),
-                                                         (0.0, 50.0)):
-                if window is not None and Sq > Skv:
-                    continue
-                kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
-                before = flash_attention_fwd.launches_by_variant.get(route, 0)
-                got = flash_attention_fwd(q, k, v, **kw)
-                ref = attention_ref(q, k, v, **kw)
-                what = (f"flash {dt} G={G} hd={hd} Sq={Sq} Skv={Skv} causal={causal} "
-                        f"window={window} softcap={cap}")
-                check(flash_attention_fwd.launches_by_variant.get(route, 0) == before + 1,
-                      f"{what}: not counted as a launch of the {route} route")
-                by_variant[route] = by_variant.get(route, 0) + 1
-                check(not torch.isnan(got).any(), f"{what}: NaN in the output")
-                check(got.dtype == ref.dtype and got.shape == ref.shape, f"{what}: shape")
-                check(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol),
-                      f"{what}: max abs err {max_err(got, ref)} beyond atol {atol}, "
-                      f"rtol {rtol}")
-                if dt == torch.bfloat16:
-                    rel = rel_l2(got, ref)
-                    check(rel <= FLASH_BF16_REL_L2, f"{what}: relative L2 {rel} beyond "
-                          f"{FLASH_BF16_REL_L2}")
-                    span = "long" if max(Sq, Skv) in FLASH_LONG_LENS else "short"
-                    worst_l2[span] = max(worst_l2[span], rel)
-                worst[str(dt)] = max(worst.get(str(dt), 0.0), max_err(got, ref))
-                n += 1
-    torch.cuda.synchronize()
-    log(f"edge: flash_attention — {n} cases (bf16/f32 x G {{1, 4, 5}} x hd {{64, 128, "
-        f"256}} x causal x window {{None, 16}} x softcap {{0, 50}} x Sq, Skv in "
-        f"{FLASH_LENS}, in bf16 also {FLASH_LONG_LENS}): OK; max abs err {worst}; bf16 "
-        f"relative L2 at most {worst_l2['short']:.3e} with Sq, Skv in {FLASH_LENS} and "
-        f"{worst_l2['long']:.3e} with either in {FLASH_LONG_LENS} (tolerance "
-        f"{FLASH_BF16_REL_L2}); cases by route {by_variant}")
-
-
-#: decode edge cases: every GQA group the kernel has an instance for (the
-#: configs': Qwen3 5, Yi and Jamba 8, InternVL2 7, Gemma3 2, Mixtral and Phi 4)
-DECODE_EDGE_G = tuple(range(1, 9))
-DECODE_EDGE_WINDOWS = (None, 16, 1024)
-
-
-def decode_pos(Smax, B, device="cuda"):
-    """Ragged positions for the decode edge cases: the first row, one row,
-    a block's worth, a middle, the last row, past the end (the cache write
-    clamps; every row live), cycled over ``B`` slots."""
-    import torch
-
-    base = [0, 1, 37, Smax // 2 + 3, Smax - 1, Smax + 5]
-    return torch.tensor([base[i % len(base)] for i in range(B)], dtype=torch.int32,
-                        device=device)
-
-
-def decode_edge_checks():
-    """The decode kernel against its plain version on the card: q in bf16
-    and f32 over a bf16 slab, G in ``DECODE_EDGE_G``, hd in {64, 128, 256},
-    window in ``DECODE_EDGE_WINDOWS``, softcap in {0, 50}, ragged positions
-    (``decode_pos``), on both routes: ``whole`` (34 slots x 4 kv heads, more
-    pairs than SMs) and ``split`` (3 slots x 2 kv heads). Each call must
-    count one launch of the route ``splits`` gives it, hold ``DECODE_TOL``
-    and ``DECODE_REL_L2`` and be free of NaN; then NaN rows past each slot's
-    position must change nothing (the kernel reads only the live rows)."""
-    import itertools
-
-    import torch
-
-    from repro_torch.kernels.decode_attention.decode_attention import (
-        decode_attention_fwd, splits, variant)
-    from repro_torch.kernels.decode_attention.ref import GLOBAL_WINDOW, decode_attention_ref
-
-    g = torch.Generator(device="cuda").manual_seed(5)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    atol, rtol = DECODE_TOL
-    Smax = 600
-    n, worst, worst_l2, by_variant = 0, 0.0, 0.0, {}
-    for (B, K), qdt, G, hd in itertools.product(((34, 4), (3, 2)),
-                                                (torch.bfloat16, torch.float32),
-                                                DECODE_EDGE_G, (64, 128, 256)):
-        route = variant(splits(B, K, Smax, sms))
-        q = (torch.randn((B, 1, K * G, hd), generator=g, device="cuda") * 4).to(qdt)
-        k = torch.randn((B, Smax, K, hd), generator=g, device="cuda").to(torch.bfloat16)
-        v = torch.randn((B, Smax, K, hd), generator=g, device="cuda").to(torch.bfloat16)
-        pos = decode_pos(Smax, B)
-        for window, cap in itertools.product(DECODE_EDGE_WINDOWS, (0.0, 50.0)):
-            kw = dict(window=window or GLOBAL_WINDOW, softcap=cap)
-            before = decode_attention_fwd.launches_by_variant.get(route, 0)
-            got = decode_attention_fwd(q, k, v, pos, **kw)
-            ref = decode_attention_ref(q, k, v, pos, **kw)
-            what = (f"decode {route} B={B} K={K} q {qdt} G={G} hd={hd} window={window} "
-                    f"softcap={cap}")
-            check(decode_attention_fwd.launches_by_variant.get(route, 0) == before + 1,
-                  f"{what}: not counted as a launch of the {route} route")
-            by_variant[route] = by_variant.get(route, 0) + 1
-            check(not torch.isnan(got).any(), f"{what}: NaN in the output")
-            check(got.dtype == ref.dtype and got.shape == ref.shape, f"{what}: shape")
-            rel = rel_l2(got, ref)
-            check(torch.allclose(got.float(), ref.float(), atol=atol, rtol=rtol)
-                  and rel <= DECODE_REL_L2,
-                  f"{what}: max abs err {max_err(got, ref)}, relative L2 {rel} beyond "
-                  f"{DECODE_TOL}, {DECODE_REL_L2}")
-            worst, worst_l2 = max(worst, max_err(got, ref)), max(worst_l2, rel)
-            n += 1
-        if qdt == torch.bfloat16 and G == 1 and hd == 128:
-            clean = decode_attention_fwd(q, k, v, pos)
-            for b, p in enumerate(pos.tolist()):
-                k[b, p + 1:] = float("nan")
-                v[b, p + 1:] = float("nan")
-            check(torch.equal(decode_attention_fwd(q, k, v, pos), clean),
-                  f"decode {route}: NaN rows past pos changed the output")
-    torch.cuda.synchronize()
-    log(f"edge: decode_attention — {n} cases (q bf16/f32 over a bf16 slab x G "
-        f"{DECODE_EDGE_G} x hd {{64, 128, 256}} x window {DECODE_EDGE_WINDOWS} x softcap "
-        f"{{0, 50}} x routes, Smax {Smax}, pos {decode_pos(Smax, 6).tolist()}): OK; max abs "
-        f"err {worst}, relative L2 at most {worst_l2:.3e} (tolerances {DECODE_TOL}, "
-        f"{DECODE_REL_L2}); cases by route {by_variant}; NaN rows past pos ignored on both "
-        f"routes")
-
-
 SSD_TOL = {  # (atol, rtol) of the SSD kernel against ssd_chunked in f32
     # the JAX kernel test's: the cumulative decays and the chunk products
     # are summed in other orders, and exp of a cumulative sum carries that
@@ -2734,9 +2231,6 @@ SSD_TOL = {  # (atol, rtol) of the SSD kernel against ssd_chunked in f32
     # kernel's y adds one bf16 rounding (2^-9 relative) on top
     "torch.bfloat16": (1e-3, 5e-3),
 }
-#: the bf16 kernel against the bf16 plain version, which rounds the scores,
-#: both products and the state update to bf16 where the kernel keeps f32
-SSD_BF16_REL_L2 = 2e-2
 MOE_W_ATOL = 1e-6  # router weights: ratios of the same exps, summed in one order
 
 
@@ -2754,164 +2248,6 @@ def _ssd_inputs(g, B, S, H, P, G, N, dtype):
     A_log = rnd(H) * 0.5
     Bm, Cm = (rnd(B, S, G, N) * 0.3).to(dtype), (rnd(B, S, G, N) * 0.3).to(dtype)
     return x, dt, A_log, Bm, Cm
-
-
-def ssd_edge_checks():
-    """The SSD kernel against ``ssd_chunked`` on the card: f32 and bf16, G in
-    {1, 2}, chunk in {16, 64, 256}, P in {16, 64}, N in {16, 128}, B in {1,
-    2}; S two, three and eight chunks (the kernel directly: the state passed
-    across 1, 2 and 7 chunk boundaries, 8 chunks of 256 as on the Mamba
-    path) and two chunks and 7 (through the wrapper, which pads). bf16 is
-    held to the plain version on the same values in f32, and to the bf16
-    plain version in relative L2. No output may be NaN, and each call counts
-    one launch."""
-    import itertools
-
-    import torch
-
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
-    from repro_torch.models.mamba2 import ssd_chunked
-
-    g = torch.Generator(device="cuda").manual_seed(4)
-    n, worst, worst_l2, bad = 0, {}, 0.0, []
-    for dt_, G, q, P, N, B in itertools.product((torch.float32, torch.bfloat16), (1, 2),
-                                                (16, 64, 256), (16, 64), (16, 128), (1, 2)):
-        H = 4
-        atol, rtol = SSD_TOL[str(dt_)]
-        for S, fn in ((2 * q, ssd_scan_fwd), (3 * q, ssd_scan_fwd), (8 * q, ssd_scan_fwd),
-                      (2 * q + 7, ssd_scan)):
-            x, dt, A_log, Bm, Cm = _ssd_inputs(g, B, S, H, P, G, N, dt_)
-            before = ssd_scan_fwd.launches
-            y, st = fn(x, dt, A_log, Bm, Cm, q)
-            yr, sr = ssd_chunked(x.float(), dt, A_log, Bm.float(), Cm.float(), q)
-            what = f"ssd_scan {dt_} B={B} S={S} H={H} P={P} G={G} N={N} chunk={q}"
-            if ssd_scan_fwd.launches != before + 1:
-                bad.append(f"{what}: not counted as one launch")
-            ok = (y.dtype == dt_ and tuple(y.shape) == (B, S, H, P)
-                  and tuple(st.shape) == (B, H, P, N) and not torch.isnan(y).any()
-                  and torch.allclose(y.float(), yr, atol=atol, rtol=rtol)
-                  and torch.allclose(st, sr, atol=2e-4, rtol=1e-3))
-            if not ok:
-                bad.append(f"{what}: max abs err y {max_err(y.float(), yr)}, state "
-                           f"{max_err(st, sr)}")
-            worst[str(dt_)] = max(worst.get(str(dt_), 0.0), max_err(y.float(), yr),
-                                  max_err(st, sr))
-            if dt_ == torch.bfloat16:
-                yb, _ = ssd_chunked(x, dt, A_log, Bm, Cm, q)
-                rel = float((y.float() - yb.float()).norm() / yb.float().norm())
-                worst_l2 = max(worst_l2, rel)
-                if rel > SSD_BF16_REL_L2:
-                    bad.append(f"{what}: relative L2 {rel} to the bf16 plain version")
-            n += 1
-    torch.cuda.synchronize()
-    check(not bad, f"ssd_scan edge checks: {len(bad)} of {n} failed: {bad[:6]}")
-    log(f"edge: ssd_scan — {n} cases (f32/bf16 x G {{1, 2}} x chunk {{16, 64, 256}} x P "
-        f"{{16, 64}} x N {{16, 128}} x B {{1, 2}} x S 2, 3 and 8 chunks and 2 chunks + 7): "
-        f"OK; max "
-        f"abs err {worst} (tolerances {SSD_TOL}); bf16 against the bf16 plain version: "
-        f"relative L2 at most {worst_l2:.3e} (tolerance {SSD_BF16_REL_L2})")
-
-
-def _tied_logits(g, T, E):
-    """Random logits whose rows are, in turn, all equal, tied at the top two,
-    tied below the top, or random, every other random row rounded down to
-    whole numbers (a few values, each held by many experts: ties all through
-    a wide top k)."""
-    import torch
-
-    x = torch.randn((T, E), generator=g, device="cuda")
-    x[0::4] = 0.5
-    x[1::4, :2] = 3.0
-    x[2::4, 1:] = x[2::4, 1:2]
-    x[3::8] = torch.floor(x[3::8])
-    return x
-
-
-def _non_finite_logits(g, T, E):
-    """Random logits whose rows are, in turn, holding a NaN, all -inf, or
-    holding a +inf: each such row's probabilities are all NaN."""
-    import torch
-
-    x = torch.randn((T, E), generator=g, device="cuda")
-    x[0::3, E // 2] = float("nan")
-    x[1::3] = float("-inf")
-    x[2::3, -1] = float("inf")
-    return x
-
-
-def _w_err(a, b) -> float:
-    """Max abs error between two weight tensors, a NaN against a NaN
-    counting as equal (inf where the NaNs differ)."""
-    import torch
-
-    if a.shape != b.shape or not torch.equal(a.isnan(), b.isnan()):
-        return float("inf")
-    return max_err(torch.nan_to_num(a), torch.nan_to_num(b))
-
-
-#: the router's edge cases: T at one token, a decode tick, a tile's tokens
-#: - 1, a tile, a tile + 1 (the first look-back), the prefill's 2048 (8
-#: tiles), 2049 (ragged; the wrapper pads it to 2304) and 8192 (32 tiles);
-#: E up to the kernel's 128 (Granite's 72 among them), k the top-1 and
-#: top-2 instances' and the wide one's (Granite's 10, and the most, 16)
-MOE_EDGE_T = (1, 4, 255, 256, 257, 2048, 2049, 8192)
-MOE_EDGE_E = (4, 8, 16, 64, 72, 128)
-MOE_EDGE_K = (1, 2, 10, 16)
-
-
-def moe_edge_checks():
-    """The router kernel against its plain version on the card: E in
-    ``MOE_EDGE_E``, k in ``MOE_EDGE_K`` up to E, T in ``MOE_EDGE_T`` (the kernel alone,
-    ``BACK_TO_BACK`` launches with no synchronize between them, and through
-    the wrapper, which pads to 256), a capacity that drops and one that does
-    not, random rows, rows with tied logits and rows with a NaN or an
-    infinity (both rank NaN highest, so their expert ids are 0 and 1).
-    Expert ids, ordinals and keep flags bit for bit; weights within
-    ``MOE_W_ATOL``, NaN where the plain version's are."""
-    import itertools
-
-    import torch
-
-    from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
-    from repro_torch.kernels.moe_route.ops import moe_route
-    from repro_torch.kernels.moe_route.ref import moe_route_ref
-
-    g = torch.Generator(device="cuda").manual_seed(5)
-    make = {"random": lambda T, E: torch.randn((T, E), generator=g, device="cuda"),
-            "tied": lambda T, E: _tied_logits(g, T, E),
-            "non-finite": lambda T, E: _non_finite_logits(g, T, E)}
-    n, worst, bad = 0, 0.0, []
-    for E, k, T, drop, kind in itertools.product(MOE_EDGE_E, MOE_EDGE_K, MOE_EDGE_T,
-                                                 (False, True), make):
-        if k > E:
-            continue
-        C = max(1, T * k // E // 2) if drop else T * k
-        x = make[kind](T, E)
-        ref = moe_route_ref(x, k, C)
-        before = moe_route_fwd.launches
-        outs = [moe_route_fwd(x, k, C) for _ in range(BACK_TO_BACK)] + [moe_route(x, k, C)]
-        what = f"moe_route E={E} k={k} T={T} C={C} {kind}"
-        if moe_route_fwd.launches != before + BACK_TO_BACK + 1:
-            bad.append(f"{what}: not counted as {BACK_TO_BACK + 1} launches")
-        for i, got in enumerate(outs):
-            call = "the wrapper" if i == BACK_TO_BACK else f"launch {i + 1}"
-            for a, b, nm in zip(got[1:], ref[1:], ("idx", "pos", "keep")):
-                if not (a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)):
-                    bad.append(f"{what}, {call}: {nm} differs")
-            err = _w_err(got[0], ref[0])
-            if err > MOE_W_ATOL:
-                bad.append(f"{what}, {call}: weights max abs err {err}")
-            worst = max(worst, err)
-        n += 1
-        if drop and T > 4:
-            check(not ref[3].all(), f"moe_route E={E} T={T} C={C}: nothing dropped")
-    torch.cuda.synchronize()
-    check(not bad, f"moe_route edge checks: {len(bad)} failed of {n}: {bad[:6]}")
-    log(f"edge: moe_route — {n} cases (E {MOE_EDGE_E} x k {MOE_EDGE_K} up to E x T "
-        f"{MOE_EDGE_T} x capacity dropping or not x random, tied or non-finite rows; the kernel "
-        f"{BACK_TO_BACK} times back to back and through the wrapper): ids, ordinals and keep "
-        f"equal; weights max abs err {worst} (tolerance {MOE_W_ATOL})")
 
 
 def ssd_flop_bytes(x_shape, bn_shape, chunk, itemsize):
@@ -4996,7 +4332,7 @@ def train_phase():
 
 
 # ---------------------------------------------------------------------------
-# phase 9: distributed — expert-parallel MoE, the pipeline schedule and
+# phase 8: distributed — expert-parallel MoE, the pipeline schedule and
 # restore_elastic on meshes of virtual ranks
 # ---------------------------------------------------------------------------
 
@@ -5406,7 +4742,7 @@ def distributed_phase():
 
 
 # ---------------------------------------------------------------------------
-# phase 10: launch — the dry run and ignis-submit
+# phase 9: launch — the dry run and ignis-submit
 # ---------------------------------------------------------------------------
 
 #: worker processes that price the sweep's pieces at once (the machine's
@@ -6166,14 +5502,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     try:
         build()
-        edge_checks()
-        segment_edge_checks()
-        prefix_edge_checks()
-        route_edge_checks()
-        flash_edge_checks()
-        decode_edge_checks()
-        ssd_edge_checks()
-        moe_edge_checks()
         launches = main_path(args)
         rows = kernel_checks(launches, args.reps)
         apps_phase()

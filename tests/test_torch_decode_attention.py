@@ -11,7 +11,10 @@ card and skip without one (``pytest -m cuda tests/test_torch_decode_attention.py
 on the card).
 """
 import importlib
+import itertools
+import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -27,6 +30,9 @@ from repro_torch.models import build_model
 from repro_torch.models.layers import rmsnorm, rope
 from repro_torch.profile import cost
 from repro_torch.profile.cost import CostEstimate, CostModel
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+from chip_smoke import DECODE_REL_L2, DECODE_TOL  # noqa: E402
 
 da = importlib.import_module("repro_torch.kernels.decode_attention.decode_attention")
 
@@ -274,55 +280,51 @@ def test_a_flash_decode_step_prices_one_kernel_call_a_layer():
 # on the card
 # ---------------------------------------------------------------------------
 
-#: bf16 output against the plain version: the plain version rounds each
-#: probability to bf16 before P·V (2^-9 relative each) where the kernel
-#: keeps it in f32, and both round the output to bf16 (2^-9 relative); the
-#: sums run in other orders. With v ~ N(0, 1) that stays well inside the
-#: flash kernel's bf16 tolerance, which these tests take
-ATOL, RTOL = 2e-2, 2e-2
-#: and in relative L2 over the whole output, where a row summed wrong would
-#: show though each element passed: the roundings above give a few 1e-3
-REL_L2 = 1e-2
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA kernel runs only there")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+#: every GQA group the kernel has an instance for (the configs': Qwen3 5, Yi
+#: and Jamba 8, InternVL2 7, Gemma3 2, Mixtral and Phi 4)
+EDGE_G = tuple(range(1, 9))
+EDGE_WINDOWS = (A.GLOBAL_WINDOW, 16, 1024)
+#: both routes: ``whole`` (34 slots x 4 kv heads, more pairs than SMs) and
+#: ``split`` (3 slots x 2 kv heads), over a slab of 600 rows
+ROUTES = [("whole", 34, 4), ("split", 3, 2)]
+EDGE_SMAX = 600
 
 
 def _on_card(B, Smax, K, G, hd, qdt, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((B, 1, K * G, hd), generator=g, device="cuda").to(qdt)
+    q = (torch.randn((B, 1, K * G, hd), generator=g, device="cuda") * 4).to(qdt)
     k = torch.randn((B, Smax, K, hd), generator=g, device="cuda").to(torch.bfloat16)
     v = torch.randn((B, Smax, K, hd), generator=g, device="cuda").to(torch.bfloat16)
     return q, k, v
 
 
+def _ragged_pos(Smax, B):
+    """The first row, one row, a block's worth and more, the last row, past
+    the end (clamped: every row live), cycled over ``B`` slots."""
+    return torch.tensor(([0, 1, 37, 300, Smax - 1, Smax + 5] * B)[:B], dtype=torch.int32,
+                        device="cuda")
+
+
 def _held(got, want, what):
     assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape, what
     assert not torch.isnan(got).any(), what
-    torch.testing.assert_close(got.float(), want.float(), atol=ATOL, rtol=RTOL, msg=what)
+    atol, rtol = DECODE_TOL  # chip_smoke.py's, which gives the reasons
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol, msg=what)
     rel = float((got.float() - want.float()).norm() / want.float().norm())
-    assert rel <= REL_L2, f"{what}: relative L2 {rel}"
+    assert rel <= DECODE_REL_L2, f"{what}: relative L2 {rel}"
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route,B,K", [("whole", 34, 4), ("split", 3, 2)])
+@pytest.mark.parametrize("route,B,K", ROUTES)
 @pytest.mark.parametrize("G,hd,qdt,window,cap", [
-    (1, 128, torch.bfloat16, A.GLOBAL_WINDOW, 0.0), (5, 128, torch.bfloat16, 100, 0.0),
-    (8, 64, torch.bfloat16, A.GLOBAL_WINDOW, 0.0), (2, 256, torch.bfloat16, 33, 50.0),
+    *itertools.product(EDGE_G, (64, 128, 256), (torch.bfloat16, torch.float32), EDGE_WINDOWS,
+                       (0.0, 50.0)),
+    (5, 128, torch.bfloat16, 100, 0.0), (2, 256, torch.bfloat16, 33, 50.0),
     (4, 128, torch.float32, A.GLOBAL_WINDOW, 30.0)])
 def test_the_kernel_equals_the_plain_version_on_either_route(card, route, B, K, G, hd, qdt,
                                                              window, cap):
-    Smax = 600
-    q, k, v = _on_card(B, Smax, K, G, hd, qdt, G * hd)
-    # ragged lengths: the first row, one row, a block's worth and more, the
-    # last row, past the end (clamped: every row live)
-    pos = torch.tensor(([0, 1, 37, 300, Smax - 1, Smax + 5] * B)[:B], dtype=torch.int32,
-                       device="cuda")
+    q, k, v = _on_card(B, EDGE_SMAX, K, G, hd, qdt, G * hd)
+    pos = _ragged_pos(EDGE_SMAX, B)
     fn = da.decode_attention_fwd
     before = fn.launches_by_variant.get(route, 0)
     with torch.no_grad():
@@ -334,10 +336,14 @@ def test_the_kernel_equals_the_plain_version_on_either_route(card, route, B, K, 
 
 
 @pytest.mark.cuda
-def test_the_kernel_reads_only_the_live_rows(card):
-    """Rows past ``pos`` may hold anything: NaNs there change nothing."""
-    q, k, v = _on_card(4, 256, 2, 1, 128, torch.bfloat16, 7)
-    pos = torch.tensor([0, 17, 128, 200], dtype=torch.int32, device="cuda")
+@pytest.mark.parametrize("B,Smax,K,at", [(4, 256, 2, (0, 17, 128, 200)),
+                                         *((B, EDGE_SMAX, K, None) for _, B, K in ROUTES)])
+def test_the_kernel_reads_only_the_live_rows(card, B, Smax, K, at):
+    """Rows past ``pos`` may hold anything: NaNs there change nothing (on
+    both routes at the edge cases' ragged positions)."""
+    q, k, v = _on_card(B, Smax, K, 1, 128, torch.bfloat16, 7)
+    pos = (torch.tensor(at, dtype=torch.int32, device="cuda") if at
+           else _ragged_pos(Smax, B))
     with torch.no_grad():
         clean = decode_attention(q, k, v, pos)
         for b, p in enumerate(pos.tolist()):

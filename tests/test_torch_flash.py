@@ -6,7 +6,7 @@ tests/test_kernels.py runs it (blocks of 16 keep it quick). Inputs are made
 with numpy from a seed. f32 is held to atol 2e-5 / rtol 1e-4: the two differ
 only in summation order and in the online softmax's rescaling. The CUDA
 kernel itself is held against the plain version on the card by
-``chip_smoke.py``.
+``tests/test_torch_card_kernels.py`` and ``chip_smoke.py``.
 """
 import importlib
 

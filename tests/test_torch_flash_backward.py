@@ -234,14 +234,6 @@ GRAD_ABS = 1e-3
 LSE_TOL = dict(atol=2e-4, rtol=2e-5)
 
 
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA kernel runs only there")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
 def _on_card(seed, B, H, K, Sq, Skv, hd, scale=1.0):
     q, k, v, g = _inputs(seed, B, H, K, Sq, Skv, hd, torch.float32)
     return [(t * s).to(torch.bfloat16).cuda() for t, s in zip((q, k, v, g), (scale, 1, 1, 1))]

@@ -9,8 +9,9 @@ runs them. Inputs are made with numpy from a seed and fed to both.
 Ints, max/min and integer-valued f32 must match bit for bit. Random f32
 sums match to rtol=1e-5: the association order of the scans differs.
 
-chip_smoke.py holds the CUDA kernels against these plain versions on
-the card.
+On the card tests/test_torch_card_kernels.py holds the CUDA kernels
+against these plain versions at edge shapes, chip_smoke.py at its paths'
+inputs.
 """
 import numpy as np
 import pytest

@@ -11,10 +11,12 @@ runs them; inputs are made with numpy from a seed and fed to both.
 
 Integers, max/min and integer-valued f32 must match bit for bit; random f32
 sums to rtol 1e-5, atol 1e-4 (the association order differs), the
-tolerance chip_smoke.py holds the kernel to on the card. Router ids,
+tolerance the kernel is held to on the card. Router ids,
 ordinals and keep flags bit for bit, weights within 1e-6.
 
-chip_smoke.py holds the CUDA kernels against the plain versions on the card.
+On the card tests/test_torch_card_kernels.py holds the CUDA kernels
+against the plain versions at edge shapes, chip_smoke.py at its paths'
+inputs.
 """
 import numpy as np
 import pytest

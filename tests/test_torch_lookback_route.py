@@ -13,12 +13,15 @@ from a seed and fed to both.
 
 Integers, max/min and integer-valued f32 must match bit for bit (NaN rows
 where the reference has them); random f32 sums to rtol 1e-5, atol 1e-4 (the
-association order differs). On the card chip_smoke.py holds the kernel's
-random f32 sums against the scan in float64: their largest error at most
-``F32_SUM_ERR_RATIO`` times torch.cumsum's own. Router ordinals, keep flags
+association order differs). On the card the kernel's random f32 sums
+are held against the scan in float64: their largest error at most
+``F32_SUM_ERR_RATIO`` times torch.cumsum's own
+(tests/test_torch_card_kernels.py). Router ordinals, keep flags
 and counts bit for bit.
 
-chip_smoke.py holds the CUDA kernels against the plain versions on the card.
+On the card tests/test_torch_card_kernels.py holds the CUDA kernels
+against the plain versions at edge shapes, chip_smoke.py at its paths'
+inputs.
 """
 import numpy as np
 import pytest

@@ -5,7 +5,8 @@ same weights (carried by ``interop.params_from_reference``).
 On the CPU the port's ``moe_route`` takes its plain version; the JAX
 ``moe_route`` runs its Pallas kernel in interpret mode, as
 tests/test_kernels.py runs it. The CUDA kernel itself is held against the
-plain version on the card by ``chip_smoke.py``.
+plain version on the card by ``tests/test_torch_card_kernels.py`` and
+``chip_smoke.py``.
 
 Tolerances. The router's expert ids, ordinals and keep flags are integers
 and must be equal; its weights are f32 ratios of exponentials, held to

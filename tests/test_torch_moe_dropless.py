@@ -3,9 +3,10 @@ the router at its k = 10 of E = 72: the grouped expert path against a loop
 over each token's routed experts, the router's plain version against
 ``torch.topk`` and a softmax over the chosen logits, the ``moe.experts``
 span and its settled counts, the hybrid layouts (Granite's and Jamba's) on
-the serve engine. Tests marked ``cuda`` hold the router kernel and the
-grouped products on the card against their plain versions and skip here
-(on the card: ``pytest -m cuda tests/test_torch_moe_dropless.py``)."""
+the serve engine. The test marked ``cuda`` holds the grouped products on
+the card against the loop and skips here (on the card: ``pytest -m cuda
+tests/test_torch_moe_dropless.py``); the router kernel's card cases, k = 10
+of 72 among them, are ``tests/test_torch_card_kernels.py``'s."""
 import numpy as np
 import pytest
 import torch
@@ -106,9 +107,9 @@ def test_grouped_products_skip_experts_with_no_rows():
     assert grouped_experts.launches == 0  # counted on the card only
 
 
-def _tied_logits(g, T, E, device="cpu"):
+def _tied_logits(g, T, E):
     """Rows whose logits take four values: many exact ties."""
-    return torch.randint(0, 4, (T, E), generator=g, device=device).float()
+    return torch.randint(0, 4, (T, E), generator=g).float()
 
 
 @pytest.mark.parametrize("kind", ["random", "tied"])
@@ -194,32 +195,6 @@ def test_jamba_still_builds_and_serves():
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the CUDA kernel runs only there")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 7, 256, 257, 1000, 4096, 16384])
-@pytest.mark.parametrize("kind", ["random", "tied"])
-def test_router_kernel_at_k10_of_72_equals_the_plain_version(card, T, kind):
-    from repro_torch.kernels.moe_route.moe_route import moe_route_fwd
-    from repro_torch.kernels.moe_route.ops import moe_route
-
-    g = torch.Generator(device="cuda").manual_seed(T)
-    x = (torch.randn((T, 72), generator=g, device="cuda") if kind == "random"
-         else _tied_logits(g, T, 72, "cuda"))
-    C = max(1, T * 10 // 72 // 2)  # a capacity that drops
-    want = moe_route_ref(x, 10, C)
-    for got in (moe_route_fwd(x, 10, C), moe_route(x, 10, C)):
-        for a, b, nm in zip(got[1:], want[1:], ("idx", "pos", "keep")):
-            assert a.dtype == b.dtype and torch.equal(a, b), nm
-        assert float((got[0] - want[0]).abs().max()) <= 1e-6
 
 
 @pytest.mark.cuda

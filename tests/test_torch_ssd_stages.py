@@ -4,7 +4,8 @@ package's SSD scan and its oracle, on the same inputs (numpy, from a seed).
 
 The CUDA kernel cannot run on the CPU; this mirror of its dataflow, in
 plain torch, is what the CPU can hold against the reference. The kernel
-itself is held against ``ssd_chunked`` on the card by ``chip_smoke.py``.
+itself is held against ``ssd_chunked`` on the card by
+``tests/test_torch_card_kernels.py`` and ``chip_smoke.py``.
 
 Tolerances. In f32, atol 2e-4 and rtol 1e-3, the JAX kernel test's own
 (``SSD_TOL`` in ``chip_smoke.py``): the decays and the chunk products are

@@ -5,7 +5,8 @@ same weights (carried by ``interop.params_from_reference``).
 On the CPU the port's ``ssd_scan`` takes its plain version, ``ssd_chunked``;
 the JAX ``ssd_scan`` runs its Pallas kernel in interpret mode, as
 tests/test_kernels.py runs it. The CUDA kernel itself is held against the
-plain version on the card by ``chip_smoke.py``.
+plain version on the card by ``tests/test_torch_card_kernels.py`` and
+``chip_smoke.py``.
 
 Tolerances. The SSD in f32 is held to atol 2e-4, rtol 1e-3, the JAX kernel
 test's own: the two packages take the cumulative decays and the chunk
