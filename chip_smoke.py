@@ -149,7 +149,14 @@ non-zero):
              and Phi-3.5-MoE at 24 of its 32 layers (``PHI_LAYERS``; flash
              and the router with 16 experts, top-2), each timed by its own
              log line; every attention model decodes through the decode
-             kernel (Gemma3-4B too: its windows are arguments). Checks:
+             kernel (Gemma3-4B too: its windows are arguments); the
+             transformers' decodes, after each engine's first, replay from
+             a CUDA graph (checked; Mamba's and Jamba's stay eager, also
+             checked), their launches counted as eager ones: a replay's
+             device kernels, as ``torch.profiler`` sees them, are checked
+             equal to the launches it is counted for, and the same prompts
+             served again through an engine that decodes eagerly must give
+             the same tokens bit for bit. Checks:
              every ticket resolves
              with 32 tokens, each kernel's launches equal layers x prefills
              (the router: layers x (prefills + decode steps); the decode
@@ -159,11 +166,12 @@ non-zero):
              kernel held at each call's inputs and its logits against the
              plain version's (``hold_decode``; not held for the top-2
              MoE models),
-             serve tasks in the job, finite logits, and the kernels' prefill logits against
+             serve tasks in the job, finite logits of every prefill and
+             eager decode, and the kernels' prefill logits against
              the plain versions' on the same weights (Mamba's in an f32 copy
              of the model, after its SSD held layer by layer in bf16).
              Reports prefill ms per
-             request, decode ms per tick, tokens/s, request latency, peak
+             request, tick ms (to the device's end), tokens/s, request latency, peak
              memory and, for a tick and the longest prefill, the host's
              enqueue time against the device's busy time; then the path's
              new kernel at its largest shape, timed beside its bound, its
@@ -171,7 +179,11 @@ non-zero):
              gives the earlier design's recorded time, ``RECORDED_EARLIER_MS``,
              which this run does not measure); the router at the largest
              prefill and at a decode tick (T = 4), by device time
-             (``torch.profiler``) and the wrapper's host µs per call;
+             (``torch.profiler``) and the wrapper's host µs per call; the
+             kernels line's decode row (Qwen3-14B's run) and router row
+             (Mixtral's) gain ``replayed``: the decode graph's replays, the
+             launches counted for them, and a replay's launches as counted
+             and as the profiler saw them on the device;
 6. jamba,  — after Phi's memory is released, the other families
    internvl, (``FAMILY_PHASES``), random bf16 weights, flash in every
    whisper   prefill: Jamba-1.5-Large at full width, one block of 8 layers
@@ -2515,6 +2527,90 @@ class _Timed:
         return logits, cache
 
 
+def _not_in_place(decode_step):
+    """``decode_step`` returning views of its cache: the same values, not the
+    tensors it was given, so the engine decodes it eagerly."""
+    def step(params, cache, tokens):
+        logits, out = decode_step(params, cache, tokens)
+        return logits, {k: t.view(t.shape) for k, t in out.items()}
+    return step
+
+
+#: the device kernel that a counted launch runs, as ``device_profile`` names it
+DEVICE_KERNEL = {"decode_attention": "decode_attention_kernel",
+                 "moe_route": "moe_route_kernel"}
+
+
+def replay_launches(label, captured, reps: int = 3) -> dict:
+    """``{kernel: launches a replay makes}`` of an engine's decode graph
+    (``captured``, the engine's ``_Captured``), as ``torch.profiler`` sees
+    them on the device over ``reps`` replays, each checked equal to what the
+    engine counts for a replay (``captured.launches``): a graphed run's
+    launch counters are credited at each replay, and this is what shows
+    that the kernels run inside the graph."""
+    _ms, per_replay = device_profile(captured.graph.replay, reps)
+    check(bool(per_replay), f"{label}: the profiler saw no device time in the decode "
+          f"graph's replays")
+    seen = {}
+    for k, (n, _by) in captured.launches.items():
+        check(k in DEVICE_KERNEL, f"{label}: the decode graph launches {k}, whose device "
+              f"kernel DEVICE_KERNEL does not name")
+        seen[k] = per_replay.get(DEVICE_KERNEL[k], 0)
+        check(seen[k] == n, f"{label}: a replay of the decode graph runs {DEVICE_KERNEL[k]} "
+              f"{seen[k]} times (torch.profiler), but counts {n} launches")
+    log(f"{label}: device launches a replay of the decode graph, as torch.profiler sees "
+        f"them over {reps} replays: {seen}; launches a replay counts: {captured.launches}")
+    return seen
+
+
+def eager_serve_check(label, bundle, params, prompts, served):
+    """Serve ``prompts`` again, in the same order, through a new engine whose
+    decode returns views of its cache (``_not_in_place``: it stays eager),
+    every decode's logits checked finite (``_Timed``): the same ticks as the
+    graphed run's, whose tokens (``served``, in the prompts' order) must be
+    the same bit for bit."""
+    import dataclasses
+
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.engine import Request
+
+    eager = ServeEngine(bundle, params, slots=SERVE_SLOTS, cache_len=SERVE_CACHE_LEN)
+    decode = _Timed(bundle.decode_step, f"{label} eager decode")
+    eager.bundle = dataclasses.replace(bundle, decode_step=_not_in_place(decode))
+    for i, p in enumerate(prompts):
+        eager.submit(Request(i, p, max_new_tokens=SERVE_NEW))
+    again = sorted(eager.run_to_completion(), key=lambda r: r.rid)
+    rec = eager.decode_graph
+    check(rec.replays == 0 and rec.eager == len(decode.ms),
+          f"{label}: the eager engine's decodes {rec}, {len(decode.ms)} decode calls")
+    same = sum(a.tokens == b.tokens for a, b in zip(served, again))
+    log(f"{label}: the prompts served again through an eager engine ({rec.eager} decodes, "
+        f"logits finite): {same} of {len(served)} requests' tokens the same as the graphed "
+        f"run's")
+    check(len(again) == len(served) and same == len(served),
+          f"{label}: an eager engine serves other tokens than the graphed run in "
+          f"{len(served) - same} of {len(served)} requests")
+
+
+def _timed_ticks(engine):
+    """Time each of ``engine``'s ticks on the host's clock, to the device's
+    end (a synchronise after ``step``, outside it, so that the decode stays
+    free to be captured as a CUDA graph); returns the list the ms go to."""
+    import torch
+
+    ms, step = [], engine.step
+
+    def timed():
+        t0 = time.perf_counter()
+        live = step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return live
+
+    engine.step = timed
+    return ms
+
+
 def where_time(what, fn, reps=4):
     """Per call: host wall to enqueue the call (it returns before the
     device finishes), wall to the device's end, and — from
@@ -2628,7 +2724,8 @@ def hold_decode(label, bundle, params, cache, tokens, layers, logits_held=True):
     return rel
 
 
-def serve_phase(args, label, cfg, expect, compare, rel_tol, note="", extra=None):
+def serve_phase(args, label, cfg, expect, compare, rel_tol, note="", extra=None,
+                graphed=True):
     """``cfg`` at full width (random weights from a seeded generator) serves
     8 requests of 512–2048 prompt tokens x 32 new tokens through
     ``ServeFrontDoor`` on a cuda worker: continuous batching on 4 slots of a
@@ -2641,7 +2738,14 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note="", extra=None)
     on two of the prompts. Where the path decodes through the decode
     kernel (``expect`` names it), one more decode step on the run's final
     cache holds it (``hold_decode``). ``extra(bundle, params)``, when given, runs last
-    on the same weights and returns a dict merged into the report. Returns
+    on the same weights and returns a dict merged into the report. Where
+    ``graphed`` (a decode that writes its cache in place), every decode but
+    the engine's first replays from a CUDA graph, whose kernels the
+    profiler must see run as often as a replay counts them
+    (``replay_launches``), and an eager engine must serve the same tokens
+    (``eager_serve_check``); else no decode replays, and each decode's
+    logits are checked finite. Each tick is timed to the device's end
+    around ``engine.step``. Returns
     ({kernel: (launches, sweep launches, geometries)}, report)."""
     import dataclasses
     import gc
@@ -2674,8 +2778,11 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note="", extra=None)
     check(params.device == w.device, f"model on {params.device}, worker on {w.device}")
     engine = ServeEngine(bundle, params, slots=SERVE_SLOTS, cache_len=SERVE_CACHE_LEN)
     prefill = _Timed(bundle.prefill, f"{label} prefill")
-    decode = _Timed(bundle.decode_step, f"{label} decode")
-    engine.bundle = dataclasses.replace(bundle, prefill=prefill, decode_step=decode)
+    # a graphed decode runs unwrapped: _Timed's synchronise would fail its capture
+    decode = None if graphed else _Timed(bundle.decode_step, f"{label} decode")
+    engine.bundle = dataclasses.replace(bundle, prefill=prefill,
+                                        decode_step=decode or bundle.decode_step)
+    tick_ms = _timed_ticks(engine)
     job = IJob(label)
     fd = ServeFrontDoor(engine, w, job=job)
     lens, prompts = serve_prompts(args.seed, cfg.vocab_size)
@@ -2687,7 +2794,9 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note="", extra=None)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fns = K.launch_counters()
-    want = expect(len(prefill.ms), len(decode.ms))
+    graph = engine.decode_graph
+    decodes = graph.replays + graph.eager
+    want = expect(len(prefill.ms), decodes)
     launches = {k: (fns[k].launches, fns[k].tune_launches, sorted(fns[k].geometries))
                 for k in want}
     routes = {k: dict(fns[k].launches_by_variant) for k in want if k in PATH_VARIANT}
@@ -2709,14 +2818,19 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note="", extra=None)
     gen = sum(len(r.tokens) for r in done)
     log(f"{label}: {len(done)} requests (prompt lengths {lens.tolist()}) x {SERVE_NEW} "
         f"tokens in {wall * 1e3:.1f} ms: {gen / wall:.1f} generated tokens/s; "
-        f"{tasks['serve']} serve ticks in the IJob, {len(decode.ms)} decode steps; kernel "
-        f"launches { {k: fns[k].launches for k in want} } (expected {want}), by route "
-        f"{routes}")
+        f"{tasks['serve']} serve ticks in the IJob, {decodes} decode steps ({graph}); "
+        f"kernel launches { {k: fns[k].launches for k in want} } (expected {want}), by "
+        f"route {routes}")
+    check(graph.replays == (decodes - 1 if graphed else 0),
+          f"{label}: the decode {'should' if graphed else 'should not'} replay from a CUDA "
+          f"graph after its first step: {graph}")
+    check(graphed or len(decode.ms) == decodes,
+          f"{label}: {decodes} decodes counted, {len(decode.ms) if decode else 0} timed")
     log(f"{label}: prefill (time to first token) ms per request "
         f"{[round(x, 3) for x in prefill.ms]}; mean {np.mean(prefill.ms):.3f}")
-    log(f"{label}: decode ms per tick over {len(decode.ms)} ticks: median "
-        f"{np.median(decode.ms):.3f}, mean {np.mean(decode.ms):.3f}, min "
-        f"{min(decode.ms):.3f}, max {max(decode.ms):.3f}")
+    log(f"{label}: tick ms (admission, prefills and the decode, to the device's end) over "
+        f"{len(tick_ms)} ticks: median {np.median(tick_ms):.3f}, mean "
+        f"{np.mean(tick_ms):.3f}, min {min(tick_ms):.3f}, max {max(tick_ms):.3f}")
     lat = [t.latency_ms for t in tickets]
     log(f"{label}: request latency p50 {np.percentile(lat, 50):.1f} ms, max "
         f"{max(lat):.1f} ms (from submission; all {SERVE_REQUESTS} queued at once); "
@@ -2726,7 +2840,7 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note="", extra=None)
     if want.get("decode_attention"):
         last = torch.as_tensor(engine._last, device="cuda")[:, None]
         hold_decode(label, bundle, params, engine.cache, last,
-                    want["decode_attention"] // len(decode.ms), logits_held=not cfg.is_moe)
+                    want["decode_attention"] // decodes, logits_held=not cfg.is_moe)
 
     # where a tick's and a prefill's time goes: host enqueue against device
     longest = torch.as_tensor(prompts[int(np.argmax(lens))], device="cuda")[None]
@@ -2734,6 +2848,12 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note="", extra=None)
     where_time(f"{label} decode tick", lambda: bundle.decode_step(params, engine.cache, toks))
     where_time(f"{label} prefill of {longest.shape[1]} tokens",
                lambda: bundle.prefill(params, tokens=longest))
+    replayed = {}
+    if graphed:
+        per_replay = replay_launches(label, engine._graph)
+        replayed = {k: dict(replays=graph.replays, credited=n * graph.replays,
+                            per_replay=n, per_replay_device=per_replay[k])
+                    for k, (n, _by) in engine._graph.launches.items()}
 
     # the kernels against their plain versions in prefill, on the same weights
     for i in (int(np.argmin(lens)), int(np.argmax(lens))):
@@ -2743,11 +2863,16 @@ def serve_phase(args, label, cfg, expect, compare, rel_tol, note="", extra=None)
             f"logits relative L2 {rel:.3e} (tolerance {rel_tol}); argmax "
             f"{int(lk.argmax())} vs {int(lp.argmax())}")
         check(rel <= rel_tol, f"{label}: kernel and plain prefill logits differ: rel L2 {rel}")
-    report = dict(prefill_ms=prefill.ms, decode_ms=decode.ms, wall_ms=wall * 1e3,
-                  tokens_per_s=gen / wall, peak_gib=peak / 2**30)
+    del engine, fd  # the slab and the graph's memory, before an eager engine's
+    gc.collect()
+    torch.cuda.empty_cache()
+    if graphed:
+        eager_serve_check(label, bundle, params, prompts, done)
+    report = dict(prefill_ms=prefill.ms, tick_ms=tick_ms, wall_ms=wall * 1e3,
+                  tokens_per_s=gen / wall, peak_gib=peak / 2**30, replayed=replayed)
     if extra:
         report.update(extra(bundle, params))
-    del params, engine, fd, bundle
+    del params, bundle
     gc.collect()
     torch.cuda.empty_cache()
     return launches, report
@@ -2853,7 +2978,7 @@ def serve_mamba(args):
 
     return serve_phase(args, "mamba", cfg,
                        lambda prefills, ticks: {"ssd_scan": cfg.num_layers * prefills},
-                       compare, SSM_F32_REL_L2)
+                       compare, SSM_F32_REL_L2, graphed=False)
 
 
 def serve_dense(args, name, flash=True):
@@ -3229,7 +3354,7 @@ def serve_jamba(args):
         note=f", {cfg.num_layers} of its {full.num_layers} layers (one block) with "
              f"{cfg.num_experts} of its {full.num_experts} experts a MoE slot, top-"
              f"{cfg.experts_per_token} (JAMBA_LAYERS, JAMBA_EXPERTS: one whole block "
-             f"is 84.1 GiB in bf16)", extra=splice_run)
+             f"is 84.1 GiB in bf16)", extra=splice_run, graphed=False)
     return {k: v[0] for k, v in launches.items()}, report
 
 
@@ -5506,13 +5631,14 @@ def main() -> int:
         rows = kernel_checks(launches, args.reps)
         apps_phase()
         recovery_phase()
-        launches, _ = serve_qwen(args)
+        launches, report = serve_qwen(args)
         rows.append(flash_row(launches, args.reps))
-        rows.append(decode_row(launches, args.reps))
+        rows.append(dict(decode_row(launches, args.reps),
+                         replayed=report["replayed"]["decode_attention"]))
         launches, _ = serve_mamba(args)
         rows.append(ssd_row(launches, args.reps))
-        launches, _ = serve_mixtral(args)
-        rows.append(moe_row(launches, args.reps))
+        launches, report = serve_mixtral(args)
+        rows.append(dict(moe_row(launches, args.reps), replayed=report["replayed"]["moe_route"]))
         for name, flash in (("olmo-1b", True), ("yi-9b", True), ("gemma3-4b", False)):
             t0 = time.perf_counter()
             serve_dense(args, name, flash)

@@ -40,7 +40,10 @@ a kernel with more than one route also counts its launches per route in
 ``launches_by_variant`` (flash attention: ``wgmma`` or ``fma``, its
 backward ``wgmma`` only; decode
 attention: ``whole`` or ``split``), so a run
-can show which route its path went through.
+can show which route its path went through. A CUDA graph's capture runs
+nothing: inside ``uncounted()`` the capturing thread's launches are taken
+aside instead of counted, and ``credit_launches`` counts them at each
+replay, so a replayed launch counts as an eager one.
 
 A fake tensor (a tracer's: shapes without data, on either device) runs
 nothing: the wrapper returns fresh tensors of its results' shapes through
@@ -149,14 +152,22 @@ def count_launch(fn, geometry: tuple, variant: str | None = None) -> None:
     outside sweeps the launch's geometry (shapes and static arguments) in
     ``fn.geometries`` so a caller can replay the shapes a path used, and
     the launch under its ``variant`` (the kernel route the wrapper chose) in
-    ``fn.launches_by_variant``."""
+    ``fn.launches_by_variant`` (inside ``uncounted``, on its thread, the
+    launch and its route are taken aside instead)."""
     if getattr(_sweep, "on", False):
         fn.tune_launches += 1
-    else:
+        return
+    fn.geometries.add(geometry)
+    taken = getattr(_sweep, "taken", None)
+    if taken is None:
         fn.launches += 1
-        fn.geometries.add(geometry)
-        if variant is not None:
-            fn.launches_by_variant[variant] = fn.launches_by_variant.get(variant, 0) + 1
+        by = fn.launches_by_variant
+    else:
+        counts = taken.setdefault(fn, [0, {}])
+        counts[0] += 1
+        by = counts[1]
+    if variant is not None:
+        by[variant] = by.get(variant, 0) + 1
 
 
 def counted(fn):
@@ -212,6 +223,35 @@ def launch_counters() -> dict:
             "ssd_scan": ssd_scan_fwd,
             "moe_route": moe_route_fwd,
             "moe_experts": grouped_experts}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Inside the block, the launches this thread makes are not counted on
+    the kernels' counters but taken aside into the dict the block yields,
+    ``{kernel name: (launches, {route: launches})}`` once the block ends
+    (other threads count as ever; the geometries are recorded as ever): a
+    CUDA graph's capture runs nothing, and ``credit_launches`` counts what
+    it took at each replay."""
+    prev = getattr(_sweep, "taken", None)
+    _sweep.taken, out = {}, {}
+    try:
+        yield out
+    finally:
+        taken, _sweep.taken = _sweep.taken, prev
+        names = {f: k for k, f in launch_counters().items()}
+        out.update({names[f]: (n, by) for f, (n, by) in taken.items()})
+
+
+def credit_launches(counts: dict) -> None:
+    """Count ``counts`` (as ``uncounted`` takes them) on the kernels'
+    counters: the launches of one replay of a captured graph."""
+    fns = launch_counters()
+    for k, (n, by) in counts.items():
+        f = fns[k]
+        f.launches += n
+        for v, c in by.items():
+            f.launches_by_variant[v] = f.launches_by_variant.get(v, 0) + c
 
 
 def reset_launches() -> None:

@@ -40,8 +40,9 @@ args and nesting (children indented, per thread)::
                              experts_hit
             readback       int(argmax): the host blocked on the device
             splice
-        engine.decode      live
-          launch           until decode_step returns
+        engine.decode      live, graph
+          launch           until decode_step returns, or the
+                           graph's replay is enqueued
             moe.experts    tokens, assignments,          models/moe.py
                            experts_hit
           readback         argmax(...).cpu()
@@ -53,7 +54,14 @@ args and nesting (children indented, per thread)::
 
 ``handoff_ms`` is the tick's wait from its submission (``JobTask.t_submit``)
 to the span's start; ``queue_ms`` a request's from ``ServeEngine.submit``
-to its prefill's start. ``moe.experts`` is one dropless MoE layer (the
+to its prefill's start. ``graph`` says how the batched decode ran:
+``"eager"`` (op by op), ``"capture"`` (op by op, then captured as a CUDA
+graph) or ``"replay"`` (replayed from the graph: none of the model's own
+spans, such as ``moe.experts``, is recorded inside it). The engine counts
+the same in its ``decode_graph`` record (``serving/engine.py``):
+``captures``, ``replays``, ``eager``, and ``why_eager``, why the engine
+decodes eagerly (None before the first decode and while a graph is
+captured). ``moe.experts`` is one dropless MoE layer (the
 router, the grouped expert products, the weighted sum; one a layer): its
 ``tokens`` and routed ``assignments`` (tokens x k), and ``experts_hit``, the
 experts given at least one. That count is made on the device and stays

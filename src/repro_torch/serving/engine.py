@@ -13,6 +13,18 @@ caches are spliced into their slot, and a transformer's decode writes one
 KV row per slot (the SSM's decode returns a new state, as in the JAX
 package).
 
+When a decode is graphed: on a CUDA device, once the first decode (run
+eagerly and served) has returned every slab leaf but ``pos`` as the very
+tensor it was given (``why_not_graphed``), the decode is captured as a
+CUDA graph right after it (the model's step, the argmax and the positions'
+advance, over the slab and a static token buffer) and replayed from the
+next tick on, one replay a tick: the same kernels on the same buffers,
+without the host launching them one by one. A decode that returns new
+state (the SSM's, the hybrid's), a CPU engine, or a capture that raises (a
+host read or a synchronise inside the step) decodes eagerly, and
+``decode_graph`` says why. Rebinding the weights, the bundle or a slab
+leaf drops the graph: the next decode is tested again, eagerly.
+
 The engine feeds token prompts, as the JAX engine does: the VLM is served
 text-only, and the audio family's prefill, which needs ``frames``, raises;
 both take their patches or frames through ``bundle.prefill`` itself. Its
@@ -31,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.profile.spans import settle, span
 
 
@@ -45,6 +58,59 @@ class Request:
     done: bool = False
     truncated: bool = False
     t_submit: float = 0.0  # perf_counter at ServeEngine.submit
+
+
+@dataclass
+class DecodeGraph:
+    """How a ``ServeEngine``'s batched decodes ran: ``captures`` of the
+    decode as a CUDA graph, ``replays`` of one, ``eager`` decodes (every
+    decode is one or the other; a capture follows an eager one), and
+    ``why_eager``, why the engine decodes eagerly (None before the first
+    decode and while a graph is captured)."""
+
+    captures: int = 0
+    replays: int = 0
+    eager: int = 0
+    why_eager: Optional[str] = None
+
+
+def why_not_graphed(device, given: dict, returned: dict) -> Optional[str]:
+    """Why a decode step on ``device`` that was given the slab ``given`` and
+    returned the cache ``returned`` cannot be replayed from a CUDA graph;
+    None where it can: the device is CUDA and the step wrote its cache in
+    place, returning every leaf but ``pos`` as the very tensor it was given.
+    (A graph replays onto the buffers it was captured with: a step that
+    returns new state would leave the slab behind.)"""
+    kind = torch.device(device).type
+    if kind != "cuda":
+        return f"the engine's device is {kind}: decode graphs need CUDA"
+    if returned.keys() != given.keys():
+        return f"decode_step returned the leaves {sorted(returned)} for {sorted(given)}"
+    new = [k for k in given if k != "pos" and returned[k] is not given[k]]
+    if new:
+        return f"decode_step returns new tensors for {', '.join(new)}: not in place"
+    return None
+
+
+class _Captured:
+    """One batched decode captured as a CUDA graph: the static token buffer
+    it reads, the next tokens it writes, what it was captured with (checked
+    by identity before each replay) and the kernel launches it makes."""
+
+    def __init__(self, engine, graph, tokens, nxt, launches):
+        self.graph, self.tokens, self.next, self.launches = graph, tokens, nxt, launches
+        self.params, self.bundle, self.cache = engine.params, engine.bundle, dict(engine.cache)
+
+    def bound_to(self, engine) -> bool:
+        return (engine.params is self.params and engine.bundle is self.bundle
+                and engine.cache.keys() == self.cache.keys()
+                and all(engine.cache[k] is t for k, t in self.cache.items()))
+
+    def replay(self, last: np.ndarray) -> torch.Tensor:
+        self.tokens.copy_(torch.from_numpy(last)[:, None])
+        self.graph.replay()
+        kernels.credit_launches(self.launches)
+        return self.next
 
 
 class ServeEngine:
@@ -65,6 +131,11 @@ class ServeEngine:
         # drain it themselves
         self.retired: list[Request] = []
         self._last = np.zeros((slots,), np.int32)
+        self.decode_graph = DecodeGraph()
+        self._graph: Optional[_Captured] = None
+        # whether a decode has been tested for in place (and, if it was,
+        # captured) since the engine started or was rebound
+        self._tested = False
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -124,8 +195,11 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def step(self) -> int:
         """Admit + one batched decode tick. Returns #live requests. Its
-        program span's decode ``launch`` ends when ``decode_step`` returns,
-        ``readback`` is the host waiting for the next tokens."""
+        program span's decode ``launch`` ends when ``decode_step`` returns
+        (or the graph's replay is enqueued), ``readback`` is the host
+        waiting for the next tokens; ``graph`` says how the decode ran:
+        ``"eager"``, ``"capture"`` (eagerly, then captured) or
+        ``"replay"``."""
         with span("engine.step") as sp:
             if sp:
                 sp.args.update(live=sum(r is not None for r in self.live),
@@ -137,12 +211,13 @@ class ServeEngine:
                 if dp:
                     dp.args["live"] = sum(r is not None for r in self.live)
                 with span("launch"):
-                    toks = torch.as_tensor(self._last, device=self.device)[:, None]
-                    logits, self.cache = self.bundle.decode_step(self.params, self.cache,
-                                                                 toks)
+                    how, out = self._decode()
                 with span("readback"):
-                    nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+                    if how != "replay":
+                        out = torch.argmax(out, dim=-1).to(torch.int32)
+                    nxt = out.cpu().numpy()
                 if dp:
+                    dp.args["graph"] = how
                     settle()
             for s, req in enumerate(self.live):
                 if req is None:
@@ -155,6 +230,68 @@ class ServeEngine:
                     self.live[s] = None  # slot freed; stale cache rows are
                     # harmless: admission overwrites them via _splice
             return sum(r is not None for r in self.live)
+
+    def _decode(self) -> tuple[str, torch.Tensor]:
+        """Enqueue the tick's batched decode over every slot: ``("replay",
+        next tokens)`` from the graph, else ``("eager", logits)``, or
+        ``("capture", logits)`` where this eager decode, the first since the
+        engine started or was rebound, proved in place and the decode was
+        then captured. The capture follows it on the same thread because
+        the eager decode creates the thread's library handles (cuBLAS),
+        which a capture cannot; the front door ticks on any of the
+        scheduler's threads."""
+        rec = self.decode_graph
+        if self._graph is not None and not self._graph.bound_to(self):
+            self._graph, self._tested = None, False  # rebound: test again
+        if self._graph is not None:
+            rec.replays += 1
+            return "replay", self._graph.replay(self._last)
+        given = self.cache
+        toks = torch.as_tensor(self._last, device=self.device)[:, None]
+        logits, self.cache = self.bundle.decode_step(self.params, given, toks)
+        rec.eager += 1
+        if self._tested:
+            return "eager", logits
+        self._tested = True
+        rec.why_eager = why_not_graphed(self.device, given, self.cache)
+        if rec.why_eager is None:
+            self._graph = self._capture()
+        return ("eager" if self._graph is None else "capture"), logits
+
+    def _capture(self) -> Optional[_Captured]:
+        """Capture the decode of the slab as it stands on a side stream. The
+        capture runs nothing (the eager decode served this tick; the graph
+        serves the next). The positions advance inside the graph, into
+        ``cache["pos"]`` itself, which ``_splice`` keeps writing. None, and
+        eager decodes from here on, where the capture raises (a synchronise
+        or a host read inside the step) or the step turns out not in place."""
+        tokens = torch.zeros((self.slots, 1), dtype=torch.int32, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(self.device)
+        cache = self.cache
+        why = None
+        # the capture's launches run at each replay: counted there
+        with kernels.uncounted() as launches:
+            try:
+                # the outer context restores the thread's stream where the
+                # graph's own exit raises before it does (entering, the
+                # graph synchronises the device)
+                with torch.cuda.stream(stream), torch.cuda.graph(
+                        graph, stream=stream, capture_error_mode="thread_local"):
+                    logits, out = self.bundle.decode_step(self.params, cache, tokens)
+                    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+                    cache["pos"].copy_(out["pos"])
+            except RuntimeError as e:
+                while e.__context__ is not None:  # the error that broke the capture
+                    e = e.__context__
+                first = str(e).strip().partition("\n")[0]
+                why = f"the capture raised {type(e).__name__}: {first}"
+        why = why or why_not_graphed(self.device, cache, out)
+        if why is not None:
+            self.decode_graph.why_eager = why
+            return None
+        self.decode_graph.captures += 1
+        return _Captured(self, graph, tokens, nxt, launches)
 
     def run_to_completion(self, max_ticks: int = 10_000) -> list[Request]:
         """Tick until queue and slots drain; returns (and clears) the
